@@ -6,11 +6,15 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA versions.
-2. Build: compiles both hand-written kernels from ``csrc/`` (one nvcc each, in parallel).
+2. Build: compiles every hand-written kernel from ``csrc/`` (one nvcc each, in
+   parallel).
 3. Kernel parity at main-path shapes: each kernel against its plain PyTorch
-   version on the card, with a partly masked ref set, plus CUDA-event times of
-   the kernel, the plain version and a library yardstick.
-4. Main path at full width: 6 fragments of 20 000 points (the registration
+   version on the card (the pipeline kernels with a partly masked ref set),
+   plus CUDA-event times of the kernel, the plain version and, where there is
+   one, a library yardstick. The compare+select and threshold-sum chains must
+   equal their plain versions bit for bit; the FMA chain within 2e-5 relative
+   (one rounding per step against the plain version's two, 64 steps).
+4. Registration path at full width: 6 fragments of 20 000 points (the registration
    benchmark's scene), ``prep_fragments_batch`` and ``register_prepped_batch``
    with ``RegistrationConfig()`` defaults over all 15 pairs x4 in 4 batches of
    16, ``refine_edges_batch`` on the 5 adjacent pairs and one more batch with
@@ -18,8 +22,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    of ground truth and both kernels' launch counts must be > 0. Then the same
    small scene registered on the card and on the CPU (plain versions) must agree,
    and the ``loop.log``/``loop.info`` files must read back.
-5. One JSON line of per-kernel numbers, then the last line
+5. Calibration path: ``kernels_bench_gpu.calibrate`` at full shape (the
+   opcode counts of the calibration kernels' SASS loop bodies, FFMA / FSETP /
+   FSEL ..., which must show the FMA chain executing one FFMA per step; one JSON
+   line of peaks, each with its share of the data sheet; a peak over 105% of
+   the data sheet fails) and ``bench_kernels`` for ``nn``, ``icp``, ``fpfh``
+   and ``voxel`` (one JSON line of scored entries).
+6. Stage path: 24 fragments of 20 000 points written as fragment artifacts,
+   then the ``register`` and ``posegraph`` CLI verbs at the default
+   configuration; every odometry edge and every accepted loop edge two
+   fragments apart within 2 cm / 0.02 rad of ground truth (measured at the
+   fragment's centroid), no aliased loop edge kept. ``pose.log`` is held to
+   ground truth twice: as the verb writes it, within 2 cm + 1% of the
+   distance from fragment 0, and after ``run_posegraph`` with 32 Gauss-Newton
+   steps per alternation instead of 8, within 5 cm at every fragment (see
+   ``POSE_LOG_*`` below for why the two differ).
+7. One JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Each path runs with every kernel's launch count set to 0 just before it and
+read just after; a kernel of a path that was never launched there fails the run.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card; without
 one, or outside a checkout of the repository, it exits non-zero and prints no
@@ -49,8 +71,40 @@ NN_OPS_PER_PAIR = 8
 # Per-query epilogue of the fused ICP step: gather, residual, J, 29 weighted sums.
 ICP_OPS_PER_QUERY = 80
 
+# f32 lane-instructions per second: one per FMA of the f32 peak.
+LANE_INSTR_PER_S = FP32_FLOPS / 2
+
 GT_TRANSLATION_M = 0.02
 GT_ROTATION_RAD = 0.02
+# pose.log against ground truth, aligned at fragment 0, at each fragment's
+# centroid. The scene is an open strip (fragment f lies 0.8 f m along it) whose
+# aliased loop candidates bend the chain in the first line-process alternation;
+# once they are pruned, the default 8 damped Gauss-Newton steps per alternation
+# do not bring the chain's weakest mode (its overall bend) all the way back,
+# in the reference implementation as here: on the same registration files both
+# leave the same centimetres at the far end. With 32 steps the optimisation
+# has converged and the result is that of the edges alone. So the verb's
+# pose.log gets a bound relative to the distance from fragment 0 (20.4 cm at
+# fragment 23, 18.4 m out, where runs of this scene left 3.1 to 13.0 cm), and
+# the converged one the absolute bound.
+POSE_LOG_DEFAULT_M = 0.02
+POSE_LOG_DEFAULT_PER_M = 0.01
+FRAGMENT_SPACING_M = 0.8
+POSE_LOG_CONVERGED_M = 0.05
+CONVERGED_INNER_ITERATIONS = 32
+# FMA chain against its plain version: the kernel rounds once per step, the
+# plain version twice (multiply, add), each up to 2^-24 relative, over 64
+# steps whose multiplier 1 + k ulp rounds the same way every step: up to
+# ~3 * 64 * 2^-24 = 1.1e-5.
+FMA_CHAIN_RTOL = 2e-5
+CALIB_PARITY_SHAPE = (4096, 512)
+
+
+_T0 = time.perf_counter()
+
+
+def phase_done(name: str) -> None:
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {name} done", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -74,8 +128,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(ops: float, nbytes: float, ops_per_s: float = FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -106,6 +160,7 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """Build every kernel library, one nvcc per source, all started together."""
     from elasticreconstruction_tpu_torch.kernels.cuda import build
 
     t0 = time.perf_counter()
@@ -192,6 +247,55 @@ def check_normal_eqs(rng, b: int, n: int, m: int, max_dist: float, dev) -> dict:
             "shape": [b, n, m]}
 
 
+def check_calib_kernels() -> dict:
+    """The three calibration kernels against their plain versions, then their times.
+
+    Parity at ``CALIB_PARITY_SHAPE`` and at the calibration's own shape; times
+    at the calibration's shape. Bounds: operations over the data-sheet rate,
+    the operations being the f32 lane-instructions the function's arithmetic
+    needs (``calib.lane_instructions``: per chain step one FMA, or a compare
+    and a select, or add + compare + select + add; plus 3 per iteration for a
+    shared threshold), whatever the compiler made of them.
+    """
+    import kernels_bench_gpu as kb
+    from elasticreconstruction_tpu_torch.kernels.cuda import calib
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    iters = kb.CALIB_ITERS
+    out = {}
+    for name in ("fma_chain", "where_chain", "threshold_sum_chain"):
+        kernel, plain = getattr(calib, name), getattr(calib, name + "_plain")
+        errs = {}
+        for shape in (CALIB_PARITY_SHAPE, kb.CALIB_SHAPE):
+            x = torch.rand(shape, device=dev, generator=gen)
+            args = (x, x * 0.75 + 0.1) if name == "where_chain" else (x,)
+            got, want = kernel(*args, iters), plain(*args, iters)
+            torch.cuda.synchronize()
+            errs[shape] = ((got - want).abs().max().item(),
+                           ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item(),
+                           torch.equal(got, want))
+            del got, want
+        print(f"{name}: " + "; ".join(
+            f"{shape} max abs err {a:.3g}, rel {r:.3g}, equal {eq}" for shape, (a, r, eq) in errs.items()))
+        if name == "fma_chain":
+            if not all(r <= FMA_CHAIN_RTOL for _, r, _ in errs.values()):
+                fail(f"fma_chain: relative error above {FMA_CHAIN_RTOL}: {errs}")
+        elif not all(eq for _, _, eq in errs.values()):
+            fail(f"{name} is not bit-equal to its plain version: {errs}")
+        ms = cuda_ms(lambda: kernel(*args, iters))
+        plain_ms = cuda_ms(lambda: plain(*args, iters), reps=3, warmup=1)
+        elems = x.numel()
+        lane_instr = calib.lane_instructions(name, iters) * elems
+        bnd, by = bound_ms(lane_instr, 4 * (len(args) + 1) * elems, LANE_INSTR_PER_S)
+        print(f"  ms kernel {ms:.4f}, plain {plain_ms:.4f}, bound {bnd:.4f} ({by}) at {tuple(x.shape)}")
+        full = errs[kb.CALIB_SHAPE]
+        out[name] = {"max_abs_err": full[0], "max_rel_err": full[1], "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, "bound_ms": bnd, "bound_by": by, "shape": list(x.shape),
+                     "lane_instructions_per_element": calib.lane_instructions(name, iters)}
+    return out
+
+
 def phase_kernel_parity() -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -199,7 +303,50 @@ def phase_kernel_parity() -> dict:
     nn_fine = check_nearest(*nn_inputs(rng, 16, 4096, 8192, dev))
     nn_info = check_nearest(*nn_inputs(rng, 16, 8192, 8192, dev))
     icp = check_normal_eqs(rng, 16, 4096, 8192, 0.075, dev)
-    return {"nearest_batch": dict(nn_fine, infomat_shape=nn_info), "normal_eqs_batch": icp}
+    return {"nearest_batch": dict(nn_fine, infomat_shape=nn_info), "normal_eqs_batch": icp,
+            **check_calib_kernels()}
+
+
+def launch_counts() -> dict:
+    from elasticreconstruction_tpu_torch.kernels.cuda import calib, icp_step, nn
+
+    return {"nearest_batch": nn.launches, "normal_eqs_batch": icp_step.launches, **calib.launches}
+
+
+def reset_launch_counts() -> None:
+    from elasticreconstruction_tpu_torch.kernels.cuda import calib, icp_step, nn
+
+    nn.launches = 0
+    icp_step.launches = 0
+    for name in calib.launches:
+        calib.launches[name] = 0
+
+
+def require_launched(path: str, counts: dict, names) -> None:
+    for name in names:
+        if counts[name] <= 0:
+            fail(f"{name} was never launched on the {path} path")
+
+
+def phase_calibration() -> dict:
+    """The calibration path: measure the card's peaks, then score the hot kernels."""
+    import kernels_bench_gpu as kb
+
+    from elasticreconstruction_tpu_torch.kernels.cuda import calib
+
+    reset_launch_counts()
+    cal = kb.calibrate("cuda")
+    for name, counts in cal["sass_loop_body"].items():
+        print(f"  SASS loop body of {name} ({calib.UNROLL} iterations x {calib.CHAINS} chains; the source's "
+              f"arithmetic needs {calib.lane_instructions(name, calib.UNROLL)}): "
+              + ", ".join(f"{op} {n}" for op, n in sorted(counts.items())))
+    entries = kb.bench_kernels(cal["peaks"], None, "cuda")
+    counts = launch_counts()
+    require_launched("calibration", counts, counts)
+    print(json.dumps({"calibrated_peaks": {
+        k: {"value": v, "share_of_data_sheet": cal["share_of_data_sheet"][k]} for k, v in cal["peaks"].items()}}))
+    print(json.dumps({"scored_kernels": entries}))
+    return counts
 
 
 def adjacent_errors(transform, ii, jj, poses) -> list[tuple[int, int, float, float]]:
@@ -403,14 +550,15 @@ def phase_timings(out: dict, cfg, batch: int) -> dict:
     }
 
 
-def device_profile(name: str, fn, top: int = 6) -> dict:
+def device_profile(name: str, fn, top: int = 6, warm: bool = True) -> dict:
     """Device busy time of one call of ``fn`` (sum of its CUDA kernel and copy
     times under torch.profiler) against its unprofiled wall time, and the
-    heaviest device ops by name."""
+    heaviest device ops by name. ``warm`` runs ``fn`` once more first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -450,6 +598,113 @@ def profile_where_time_goes(out: dict, cfg, batch: int) -> None:
                                                       fused_step=fused, device=dev))
 
 
+def phase_stages(num_frag: int = 24, n: int = 20000, seed: int = 0) -> dict:
+    """The stage path: fragment artifacts -> ``register`` -> ``posegraph``, as a user runs them."""
+    import dataclasses
+
+    from elasticreconstruction_tpu_torch.bench_scene import placement_error, write_fragments_dir
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.pipeline import run, stages
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gt, centroids = write_fragments_dir(tmp, num_frag, n=n, seed=seed)
+        reset_launch_counts()
+        walls = {}
+        for verb in ("register", "posegraph"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if run.main([verb, "--out", tmp, "--seed", str(seed)]) != 0:
+                fail(f"the {verb} verb returned non-zero")
+            torch.cuda.synchronize()
+            walls[verb + "_s"] = time.perf_counter() - t0
+        counts = launch_counts()
+        require_launched("stage", counts, ["nearest_batch"])
+
+        reg, pg = os.path.join(tmp, "registration"), os.path.join(tmp, "posegraph")
+        odo = io_logfmt.read_log(os.path.join(reg, "odometry.log"))
+        odo_info = io_logfmt.read_info(os.path.join(reg, "odometry.info"))
+        loop = io_logfmt.read_log(os.path.join(reg, "loop.log"))
+        loop_info = io_logfmt.read_info(os.path.join(reg, "loop.info"))
+        pose = io_logfmt.read_log(os.path.join(pg, "pose.log")).matrices()
+        with open(os.path.join(reg, "odometry_suspect.txt")) as f:
+            suspect = f.read().split()
+        with open(os.path.join(pg, "kept_edges.txt")) as f:
+            kept = [tuple(int(v) for v in line.split()) for line in f if line.strip()]
+        phase_done("register and posegraph verbs")
+        # The same registration files optimised to convergence.
+        cfg = run.config_from_args(run.build_parser().parse_args(["posegraph", "--out", tmp, "--seed", str(seed)]))
+        stages.run_posegraph(dataclasses.replace(cfg, posegraph=cfg.posegraph._replace(
+            inner_iterations=CONVERGED_INNER_ITERATIONS)), device="cuda")
+        pose_converged = io_logfmt.read_log(os.path.join(pg, "pose.log")).matrices()
+        # The stage under the profiler, for its device-busy share (a second run of the verb).
+        device_profile("register verb", lambda: run.main(["register", "--out", tmp, "--seed", str(seed)]),
+                       warm=False)
+
+    def off_gt(e):  # where the edge puts fragment j's centroid, against ground truth
+        return placement_error(e.transform, np.linalg.inv(gt[e.i]) @ gt[e.j], centroids[e.j])
+
+    if [(e.i, e.j) for e in odo.entries] != [(f, f + 1) for f in range(num_frag - 1)]:
+        fail("odometry.log does not hold every adjacent edge in order")
+    if len(odo_info.entries) != len(odo.entries) or len(loop_info.entries) != len(loop.entries):
+        fail("the .info files do not match their .log files")
+    if suspect:
+        fail(f"odometry edges marked suspect on a healthy scene: {suspect}")
+    worst = {"odometry": (0.0, 0.0), "loop_2_apart": (0.0, 0.0)}
+    faults = []
+    for name, entries in (("odometry", odo.entries),
+                          ("loop_2_apart", [e for e in loop.entries if e.j - e.i == 2])):
+        if not entries:
+            faults.append(f"no {name} edge was written")
+        for e in entries:
+            te, re = off_gt(e)
+            worst[name] = (max(worst[name][0], te), max(worst[name][1], re))
+            if not (te < GT_TRANSLATION_M and re < GT_ROTATION_RAD):
+                faults.append(f"{name} edge ({e.i}, {e.j}) off ground truth by {te:.4f} m / {re:.4f} rad")
+    if pose.shape != (num_frag, 4, 4) or not np.isfinite(pose).all():
+        fail(f"pose.log holds {pose.shape} poses or non-finite values")
+
+    def anchored_error(p):  # per fragment, aligned at fragment 0, at the fragment's centroid
+        rel = np.linalg.inv(p[0]) @ p
+        return np.array([placement_error(rel[f], gt[f], centroids[f])[0] for f in range(num_frag)])
+
+    pose_err = anchored_error(pose)
+    converged_err = anchored_error(pose_converged)
+    chain = [np.eye(4)]  # the odometry edges chained alone
+    for e in odo.entries:
+        chain.append(chain[-1] @ e.transform)
+    chain_err = anchored_error(np.stack(chain))
+    print(json.dumps({name: [round(float(v), 4) for v in errs] for name, errs in (
+        ("pose_log_m_by_fragment", pose_err), ("pose_log_converged_m_by_fragment", converged_err),
+        ("odometry_chain_m_by_fragment", chain_err))}))
+    limit = POSE_LOG_DEFAULT_M + POSE_LOG_DEFAULT_PER_M * FRAGMENT_SPACING_M * np.arange(num_frag)
+    if not (pose_err < limit).all():
+        f = int((pose_err - limit).argmax())
+        faults.append(f"pose.log is off ground truth by {pose_err[f]:.4f} m at fragment {f} (limit {limit[f]:.4f})")
+    if not converged_err.max() < POSE_LOG_CONVERGED_M:
+        faults.append(f"pose.log after {CONVERGED_INNER_ITERATIONS} inner iterations is off ground truth by "
+                      f"up to {converged_err.max():.4f} m (fragment {int(converged_err.argmax())})")
+    # Loop edges more than 10 cm or 0.1 rad off ground truth: aliased matches
+    # (the scene is nearly periodic in x), which the line process must prune.
+    false_loops = [(e.i, e.j) for e in loop.entries if max(off_gt(e)) > 0.1]
+    false_kept = [e for e in false_loops if e in kept]
+    if false_kept:
+        faults.append(f"false loop edges survived the line process: {false_kept}")
+    out = {"fragments": num_frag, "points_per_fragment": n, **walls,
+           "odometry_edges": len(odo.entries), "loop_edges": len(loop.entries),
+           "loop_edges_2_apart": sum(e.j - e.i == 2 for e in loop.entries),
+           "loop_edges_kept": len(kept), "false_loop_edges_accepted": len(false_loops),
+           "false_loop_edges_kept": len(false_kept),
+           "worst_odometry_m_rad": worst["odometry"], "worst_loop_2_apart_m_rad": worst["loop_2_apart"],
+           "pose_log_max_m": float(pose_err.max()), "pose_log_mean_m": float(pose_err.mean()),
+           "pose_log_converged_max_m": float(converged_err.max()),
+           "odometry_chain_max_m": float(chain_err.max()),
+           "launches": counts}
+    print(json.dumps({"stages": out}))
+    if faults:
+        fail("stage path: " + "; ".join(faults))
+    return out
+
+
 KERNELS = {
     "nearest_batch": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/nn.cu",
@@ -459,32 +714,43 @@ KERNELS = {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/icp_step.cu",
         "replaces": "elasticreconstruction_tpu/kernels/pallas/icp_step.py:168",
     },
+    "fma_chain": {
+        "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/calib.cu",
+        "replaces": "kernels_bench.py:173",
+    },
+    "where_chain": {
+        "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/calib.cu",
+        "replaces": "kernels_bench.py:220",
+    },
+    "threshold_sum_chain": {
+        "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/calib.cu",
+        "replaces": "kernels_bench.py:267",
+    },
 }
 
 
 def main() -> int:
     device = phase_device()
-    from elasticreconstruction_tpu_torch.kernels.cuda import icp_step, nn
     from elasticreconstruction_tpu_torch.registration import RegistrationConfig
 
     phase_build()
+    phase_done("build")
     parity = phase_kernel_parity()
+    phase_done("kernel parity")
 
+    # Registration path.
     cfg = RegistrationConfig()
     dev = torch.device("cuda")
     batch, num_frag, n, reps = 16, 6, 20000, 4
     main_path(dev, 3, n, cfg, batch=batch, reps=1)  # warm-up: allocator, cuBLAS, cuSOLVER
-    nn.launches = 0
-    icp_step.launches = 0
+    reset_launch_counts()
     out = main_path(dev, num_frag, n, cfg, batch=batch, reps=reps)
-    launches = {"nearest_batch": nn.launches, "normal_eqs_batch": icp_step.launches}
+    by_path = {"registration": launch_counts()}
     print(f"main path: {out['pairs']} pairs in {out['wall_s']:.3f} s = "
           f"{out['pairs'] / out['wall_s']:.2f} pairs/s (timed pass: prep + {out['pairs'] // batch} "
-          f"batches of {batch}); kernel launches {launches}, "
+          f"batches of {batch}); kernel launches {by_path['registration']}, "
           f"by part [nearest_batch, normal_eqs_batch] {out['launches_by_part']}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"{name} was never launched on the main path")
+    require_launched("registration", by_path["registration"], ["nearest_batch", "normal_eqs_batch"])
     check_main_path(out, batch)
     errs = adjacent_errors(out["results"][0].transform, out["ii"][:batch], out["jj"][:batch], out["poses"])
     print("adjacent pairs (i, j, m, rad): " + ", ".join(f"({i},{j},{t:.4f},{r:.4f})" for i, j, t, r in errs))
@@ -499,11 +765,20 @@ def main() -> int:
     print(json.dumps({"registration_pairs_per_second": statistics.median(rates),
                       "pass_rates": rates, "batch": batch, "pairs_timed": out["pairs"],
                       "phase_ms_per_batch": phases}))
+    del out
+    phase_done("registration path")
+
+    by_path["calibration"] = phase_calibration()
+    phase_done("calibration path")
+    by_path["stages"] = phase_stages()["launches"]
+    phase_done("stage path")
 
     kernels = []
     for name, meta in KERNELS.items():
         k = parity[name]
-        kernels.append({"name": name, "route": "cuda", **meta, "launches": launches[name],
+        kernels.append({"name": name, "route": "cuda", **meta,
+                        "launches": sum(counts[name] for counts in by_path.values()),
+                        "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
                         "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": k["library_ms"],

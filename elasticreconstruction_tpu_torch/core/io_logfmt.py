@@ -49,6 +49,17 @@ class Trajectory:
     def matrices(self) -> np.ndarray:
         return np.stack([e.transform for e in self.entries]) if self.entries else np.zeros((0, 4, 4))
 
+    @staticmethod
+    def from_matrices(mats, index_offset: int = 0) -> "Trajectory":
+        """A trajectory of poses: entry ``n`` carries the metadata ``n n n+1``."""
+        return Trajectory(
+            [
+                TrajectoryEntry(n + index_offset, n + index_offset, n + index_offset + 1,
+                                np.asarray(m, dtype=np.float64))
+                for n, m in enumerate(np.asarray(mats))
+            ]
+        )
+
 
 @dataclass
 class InfoFile:

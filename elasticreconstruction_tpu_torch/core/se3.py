@@ -168,6 +168,15 @@ def apply(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return points @ pose[..., :3, :3].transpose(-1, -2) + pose[..., None, :3, 3]
 
 
+def orthonormalize(pose: torch.Tensor) -> torch.Tensor:
+    """Project the rotation block back onto SO(3) via SVD (drift cleanup)."""
+    u, _, vt = torch.linalg.svd(pose[..., :3, :3])
+    det = torch.linalg.det(u @ vt)
+    fix = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    rot = (u * fix[..., None, :]) @ vt
+    return make(rot, pose[..., :3, 3])
+
+
 def kabsch(
     src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor | None = None
 ) -> torch.Tensor:

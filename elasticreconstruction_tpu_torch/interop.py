@@ -4,19 +4,26 @@ The pipeline has no weights; its state is point clouds, prepped fragments and
 registration results. These converters take the JAX package's containers (or
 any object with the same field names) field by field through ``np.asarray``,
 so this module never imports the JAX package, and hand back the port's
-containers on a given device. ``RegistrationConfig`` keeps its field names,
-so the port's config is ``RegistrationConfig(**jax_cfg._asdict())``.
+containers on a given device. ``RegistrationConfig`` and ``PGOConfig`` keep
+their field names, so the port's record is ``RegistrationConfig(**jax_cfg._asdict())``;
+:func:`pipeline_config_from` does the same for a whole ``PipelineConfig``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .core.types import PointCloud, resolve_device
-from .registration.pair import PreppedFragments
+from .elastic.slac import SlacConfig, SlacMode
+from .odometry.fragments import FragmentConfig
+from .odometry.kinfu import OdometryConfig
+from .pipeline.config import PipelineConfig
+from .posegraph.robust_pgo import EdgeList, PGOConfig
+from .registration.pair import PreppedFragments, RegistrationConfig
 
 
 def _tensor(x, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -47,3 +54,30 @@ def result_to_numpy(result: NamedTuple) -> NamedTuple:
     """One of the port's result NamedTuples (``RegistrationResult``, ``ICPResult``,
     ``RansacResult``) with numpy arrays in place of its tensors."""
     return result._make(x.detach().cpu().numpy() for x in result)
+
+
+def edges_from_numpy(edges, device="cuda") -> EdgeList:
+    """A pose-graph edge list (``i``, ``j``, ``transform``, ``information``,
+    ``is_odometry``, ``mask``) -> the port's ``EdgeList``."""
+    return EdgeList.build(
+        *(np.array(x) for x in (edges.i, edges.j, edges.transform, edges.information,
+                                edges.is_odometry, edges.mask)),
+        device=device,
+    )
+
+
+def pipeline_config_from(cfg) -> PipelineConfig:
+    """A ``PipelineConfig`` with the same fields (a dataclass whose stage
+    records are NamedTuples) -> the port's ``PipelineConfig``."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    frag = cfg.fragment._asdict()
+    frag["odometry"] = OdometryConfig(**cfg.fragment.odometry._asdict())
+    slac = cfg.slac._asdict()
+    slac["mode"] = SlacMode(cfg.slac.mode.value)
+    fields.update(
+        fragment=FragmentConfig(**frag),
+        registration=RegistrationConfig(**cfg.registration._asdict()),
+        posegraph=PGOConfig(**cfg.posegraph._asdict()),
+        slac=SlacConfig(**slac),
+    )
+    return PipelineConfig(**fields)

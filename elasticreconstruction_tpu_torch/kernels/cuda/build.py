@@ -7,10 +7,14 @@ root. The library name carries a hash of the sources, so an edited source is
 rebuilt and a built one is reused. Nothing is built at import time: the CPU
 test suite imports every module on a machine with no ``nvcc``.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` — the kernels' f32
-distance arithmetic must round like the separate elementwise ops of their
-plain PyTorch versions (see ``csrc/nn.cuh``). ``-Xptxas -v`` output (registers,
-shared memory, spills) is kept in :data:`build_logs`.
+Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, plus the flags
+:data:`SOURCE_FLAGS` names for each. ``nn`` and ``icp_step`` take
+``-fmad=false``: their f32 distance arithmetic must round like the separate
+elementwise ops of their plain PyTorch versions (see ``csrc/nn.cuh``).
+``calib`` takes ``-fmad=true``: its FMA chain exists to execute fused
+multiply-adds, and under ``-fmad=false`` it would execute a multiply and an add
+and measure half the rate. ``-Xptxas -v`` output (registers, shared memory,
+spills) is kept in :data:`build_logs`.
 """
 
 from __future__ import annotations
@@ -27,10 +31,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("nn", "icp_step")
+# Per-source flags: whether nvcc may contract a*b+c into one FMA.
+SOURCE_FLAGS = {
+    "nn": ("-fmad=false",),
+    "icp_step": ("-fmad=false",),
+    "calib": ("-fmad=true",),
+}
+SOURCES = tuple(SOURCE_FLAGS)
 
 build_logs: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,26 +58,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
 
 
-def _lib_path(name: str) -> Path:
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The full nvcc flag tuple of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: named by a hash of its
+    source, the shared headers and its flags."""
     h = hashlib.sha256()
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def load(*names: str) -> list[ctypes.CDLL]:
     """Build (if needed, all in parallel) and load the named kernel libraries."""
     with _lock:
-        todo = {n: _lib_path(n) for n in names if n not in _libs}
+        todo = {n: lib_path(n) for n in names if n not in _libs}
         procs = {}
         for n, path in todo.items():
             if path.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            cmd = [_nvcc(), *nvcc_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
         failed = []
         for n, (proc, tmp) in procs.items():

@@ -1,0 +1,591 @@
+"""Stage functions: the reference executables as resumable functions.
+
+Counterpart of ``elasticreconstruction_tpu/pipeline/stages.py``; the
+``register`` and ``posegraph`` stages are here, the others are still to port.
+Artifact layout mirrors the reference contracts so every stage is re-runnable
+from files:
+
+    out/fragments/cloud_bin_<f>.pcd      fragment clouds (local frame)
+    out/fragments/fragments.log          chained fragment base poses
+    out/fragments/health_<f>.json        per-fragment tracking health
+    out/registration/odometry.log/.info  consecutive-fragment edges
+    out/registration/odometry_suspect.txt  odometry edges not to hard-trust
+    out/registration/loop.log/.info      accepted loop-closure candidates
+    out/posegraph/pose.log               optimized fragment poses
+    out/posegraph/kept_edges.txt         loop edges surviving the line process
+
+Stage functions take ``device=`` (default ``"cuda"``, which raises if no card
+is present).
+"""
+
+from __future__ import annotations
+
+import heapq
+import json
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..core import io_logfmt, se3
+from ..core.types import PointCloud, resolve_device
+from ..posegraph import EdgeList, optimize_pose_graph
+from ..registration import (
+    edge_information_batch,
+    prep_fragments_batch,
+    refine_edges_batch,
+    register_prepped_batch,
+)
+from ..registration.retrieval import fragment_signatures, mutual_topk_pairs, signature_distances
+from .config import PipelineConfig
+
+
+def _log(stage: str, msg: str, **kv) -> None:
+    rec = {"stage": stage, "msg": msg, "t": round(time.time(), 3), **kv}
+    print(json.dumps(rec), flush=True)
+
+
+def load_fragment_health(cfg: PipelineConfig, nf: int) -> list[dict]:
+    """Per-fragment tracking-health records (permissive default if absent)."""
+    out = cfg.p_fragments()
+    health = []
+    for f in range(nf):
+        p = out / f"health_{f}.json"
+        if p.exists():
+            with open(p) as hf:
+                health.append(json.load(hf))
+        else:
+            health.append({"fragment": f, "suspect": False})
+    return health
+
+
+def load_fragment_clouds(cfg: PipelineConfig) -> list[PointCloud]:
+    """The fragment clouds on disk as numpy ``PointCloud``s padded to the fragment capacity."""
+    out = cfg.p_fragments()
+    clouds = []
+    cap = cfg.fragment.cloud_capacity
+    f = 0
+    while (out / f"cloud_bin_{f}.pcd").exists():
+        pts, nrm = io_logfmt.read_pcd(out / f"cloud_bin_{f}.pcd")
+        n = min(len(pts), cap)
+        points = np.zeros((cap, 3), np.float32)
+        normals = np.zeros((cap, 3), np.float32)
+        mask = np.zeros(cap, bool)
+        points[:n] = pts[:n]
+        if nrm is not None:
+            normals[:n] = nrm[:n]
+        mask[:n] = True
+        clouds.append(PointCloud(points, normals, mask))
+        f += 1
+    return clouds
+
+
+# ------------------------------------------------------------- registration
+
+
+def _batch_generator(seed: int, start: int) -> torch.Generator:
+    """The RANSAC draw source of the batch starting at pair ``start``: one
+    stream per (stage seed, batch), whatever ran before it."""
+    return torch.Generator().manual_seed((int(seed) << 32) ^ int(start))
+
+
+def run_registration(
+    cfg: PipelineConfig,
+    *,
+    all_pairs: bool = True,
+    gate_poses: np.ndarray | None = None,
+    device="cuda",
+) -> dict:
+    """Odometry-edge refinement + (optionally) all-pairs loop candidates.
+
+    ``all_pairs=False`` is the odometry-chain-only configuration: loop.log
+    and loop.info are written empty so downstream stages run unchanged.
+
+    Every batch is queued on the device and results are pulled to the host
+    once at the end of the stage.
+    """
+    dev = resolve_device(device)
+    out = cfg.p_registration()
+    out.mkdir(parents=True, exist_ok=True)
+    clouds = load_fragment_clouds(cfg)
+    nf = len(clouds)
+    bases = io_logfmt.read_log(cfg.p_fragments() / "fragments.log").matrices().astype(np.float32)
+    health = load_fragment_health(cfg, nf)
+    t0 = time.time()
+
+    rcfg = cfg.registration
+    all_clouds = PointCloud(*(np.stack(xs) for xs in zip(*clouds)))
+    prepped = prep_fragments_batch(all_clouds, rcfg, device=dev)
+
+    # Odometry edges: the chained base poses give the init, but raw odometry
+    # carries the within-fragment drift — refine every consecutive pair with
+    # one batched point-to-plane ICP over the prepped fine clouds.
+    idx_i = torch.arange(nf - 1, device=dev)
+    idx_j = idx_i + 1
+    init_T = torch.as_tensor(
+        np.stack([np.linalg.inv(bases[f]) @ bases[f + 1] for f in range(nf - 1)]).astype(np.float32)
+        if nf > 1 else np.zeros((0, 4, 4), np.float32),
+        device=dev,
+    )
+    ir, infos_ref = refine_edges_batch(prepped, idx_i, idx_j, init_T, rcfg)
+    # Trust region: odometry is locally reliable; reject refinements that
+    # slide far from the init (planar overlaps are point-to-plane degenerate
+    # and can drift unboundedly) or that matched poorly.
+    delta = se3.log(ir.transform @ torch.linalg.inv(init_T))
+    trust = (
+        (torch.linalg.norm(delta[:, :3], dim=-1) < 0.25)
+        & (torch.linalg.norm(delta[:, 3:], dim=-1) < 0.25)
+        & (ir.fitness > 0.2)
+    )
+    That_all = torch.where(trust[:, None, None], ir.transform, init_T)
+    infos_init = edge_information_batch(prepped, idx_i, idx_j, init_T, rcfg)
+    trust_ok = trust.cpu().numpy()
+    odo_T = That_all.cpu().numpy().astype(np.float64)
+    odo_info = torch.where(trust[:, None, None], infos_ref, infos_init).cpu().numpy().astype(np.float64)
+    odo_fitness = ir.fitness.cpu().numpy()
+    io_logfmt.write_log(
+        out / "odometry.log",
+        io_logfmt.Trajectory(
+            [io_logfmt.TrajectoryEntry(f, f + 1, nf, odo_T[f]) for f in range(nf - 1)]
+        ),
+    )
+    io_logfmt.write_info(
+        out / "odometry.info",
+        io_logfmt.InfoFile([io_logfmt.InfoEntry(f, f + 1, nf, odo_info[f]) for f in range(nf - 1)]),
+    )
+
+    # Suspect odometry edges: an edge touching a fragment whose tracking
+    # health tripped, or whose chain refinement was rejected or poorly
+    # matched, cannot be hard-trusted. They are (a) recorded for the pose
+    # graph to make line-process-eligible, and (b) re-registered from scratch
+    # (FPFH+RANSAC, no odometry init) as additional loop candidates so the
+    # graph has an independent measurement.
+    suspect = [
+        f
+        for f in range(nf - 1)
+        if health[f].get("suspect", False)
+        or health[f + 1].get("suspect", False)
+        or not trust_ok[f]
+        or odo_fitness[f] < rcfg.min_fitness
+    ]
+    with open(out / "odometry_suspect.txt", "w") as sf:
+        for f in suspect:
+            sf.write(f"{f} {f + 1}\n")
+
+    # Loop candidates: all non-adjacent pairs (+ suspect consecutive pairs),
+    # batched through the registrar. Each fragment is prepped exactly once;
+    # the pair loop only gathers prepped rows.
+    pairs = [(i, j) for i in range(nf) for j in range(i + 2, nf)] if all_pairs else []
+    gate_stats: dict = {}
+    if all_pairs and (np.isfinite(cfg.loop_candidate_radius) or cfg.loop_gating == "drift"):
+        # Fragment centroids under ``gate_poses`` (default: the odometry-chain
+        # bases) — the init placement both gates reason about.
+        gp = bases if gate_poses is None else np.asarray(gate_poses, np.float32)
+        cent = np.zeros((nf, 3), np.float32)
+        for f, c in enumerate(clouds):
+            local = c.points[c.mask].mean(0) if c.mask.any() else np.zeros(3)
+            cent[f] = gp[f, :3, :3] @ local + gp[f, :3, 3]
+    if all_pairs and np.isfinite(cfg.loop_candidate_radius):
+        # Manual radius gate, kept as an override of the derived gate below.
+        pairs = [
+            (i, j) for i, j in pairs if np.linalg.norm(cent[i] - cent[j]) < cfg.loop_candidate_radius
+        ]
+    elif all_pairs and cfg.loop_gating == "drift" and nf > 2:
+        # Derived gate + content retrieval (see PipelineConfig.loop_gating).
+        sus_edge = np.zeros(nf - 1, bool)
+        for f in suspect:
+            sus_edge[f] = True
+        budget = np.where(sus_edge, cfg.drift_suspect, cfg.drift_per_fragment)
+        cum_budget = np.concatenate([[0.0], np.cumsum(budget)])
+        cum_sus = np.concatenate([[0], np.cumsum(sus_edge.astype(int))])
+        # Overlap test: posed bounding boxes must intersect within the path's
+        # drift budget + a fixed slack. AABB intersection is the overlap
+        # criterion itself (centroid distance is too strict for two views of
+        # one wall from different ranges) and still cuts cross-room aliased
+        # pairs whose boxes hug opposite walls.
+        lo_b = np.zeros((nf, 3), np.float32)
+        hi_b = np.zeros((nf, 3), np.float32)
+        for f, c in enumerate(clouds):
+            w = (
+                c.points[c.mask] @ gp[f, :3, :3].T + gp[f, :3, 3]
+                if c.mask.any()
+                else np.zeros((1, 3), np.float32)
+            )
+            lo_b[f] = w.min(0)
+            hi_b[f] = w.max(0)
+        admitted, suspect_path = [], set()
+        for i, j in pairs:
+            if j - i <= cfg.gate_near_diagonal:
+                admitted.append((i, j))  # temporally local: always register
+            elif cum_sus[j] - cum_sus[i] == 0:
+                margin = cfg.gate_margin + (cum_budget[j] - cum_budget[i])
+                if np.all(lo_b[i] - margin <= hi_b[j]) and np.all(lo_b[j] - margin <= hi_b[i]):
+                    admitted.append((i, j))
+            else:
+                suspect_path.add((i, j))
+        content: set = set()
+        if suspect_path:
+            sig = fragment_signatures(prepped.features, prepped.coarse.mask).cpu().numpy()
+            content = mutual_topk_pairs(
+                signature_distances(sig), cfg.retrieval_topk, candidates=suspect_path
+            )
+        gate_stats = dict(
+            gate_margin=cfg.gate_margin,
+            gate_admitted=len(admitted),
+            gate_suspect_path=len(suspect_path),
+            gate_content_admitted=len(content),
+        )
+        # Content-retrieved candidates get a second registration attempt with
+        # independent RANSAC draws (they land in a different batch, so the
+        # per-batch generator salts them): they are few, high-value (often the
+        # only loop closure across a suspect stretch) and typically of
+        # marginal overlap. Accepted duplicates are deduped (best fitness
+        # wins) before they are written.
+        pairs = admitted + sorted(content) + sorted(content)
+    pairs += [(f, f + 1) for f in suspect]
+    t_prep = time.time() - t0  # prep + odometry refine
+    batch_results = []
+    B = cfg.registration_batch
+    t_first = None  # set after the first batch call returns
+    n_first = 0
+    t_disp0 = time.time()
+    for s in range(0, len(pairs), B):
+        chunk = pairs[s : s + B]
+        res = register_prepped_batch(
+            prepped,
+            [i for i, _ in chunk],
+            [j for _, j in chunk],
+            _batch_generator(cfg.seed, s),
+            rcfg,
+            device=dev,
+        )
+        batch_results.append(res)  # stays on the device
+        if t_first is None:
+            t_first, n_first = time.time(), len(chunk)
+    t_dispatch = time.time() - t_disp0  # host-side loop (ICP's exit test syncs per step)
+
+    t_drain0 = time.time()
+    results = []
+    for res in batch_results:
+        host = res._make(x.cpu().numpy() for x in res)  # single drain at stage end
+        for b in range(len(host.i)):
+            results.append(host._make(x[b] for x in host))
+    t_drain = time.time() - t_drain0  # device backlog + readback
+
+    accepted_all = [r for r in results if bool(r.success)]
+    # Dedup duplicate attempts (content retries above): best fitness wins.
+    best: dict = {}
+    for r in accepted_all:
+        k = (int(r.i), int(r.j))
+        if k not in best or float(r.fitness) > float(best[k].fitness):
+            best[k] = r
+    accepted = [best[k] for k in sorted(best)]
+    io_logfmt.write_log(
+        out / "loop.log",
+        io_logfmt.Trajectory(
+            [
+                io_logfmt.TrajectoryEntry(int(r.i), int(r.j), nf, r.transform.astype(np.float64))
+                for r in accepted
+            ]
+        ),
+    )
+    io_logfmt.write_info(
+        out / "loop.info",
+        io_logfmt.InfoFile(
+            [
+                io_logfmt.InfoEntry(int(r.i), int(r.j), nf, r.information.astype(np.float64))
+                for r in accepted
+            ]
+        ),
+    )
+    t_total = time.time() - t0
+    stats = dict(
+        pairs=len(pairs),
+        accepted=len(accepted),
+        odometry_edges=nf - 1,
+        suspect_odometry_edges=len(suspect),
+        seconds=round(t_total, 2),
+        prep_seconds=round(t_prep, 2),
+        # Stage-rate attribution: dispatch = the host loop over batches; drain
+        # = what the device still had queued + result readback.
+        dispatch_seconds=round(t_dispatch, 2),
+        drain_seconds=round(t_drain, 2),
+        io_seconds=round(t_total - t_prep - t_dispatch - t_drain, 2),
+        pairs_per_second=round((len(pairs) + nf - 1) / max(t_total, 1e-9), 3),
+        # Rate of the pair loop alone, timed from after the first batch call
+        # returns (its one-time set-up excluded, its pairs too).
+        pair_loop_pairs_per_second=(
+            round((len(pairs) - n_first) / max(t_total - (t_first - t0), 1e-9), 3)
+            if t_first is not None and len(pairs) > n_first
+            else None
+        ),
+        **gate_stats,
+    )
+    _log("registration", "done", **stats)
+    return stats
+
+
+# ----------------------------------------------------------------- posegraph
+
+
+def _gauge_consensus(
+    nf: int,
+    odo_T: dict,
+    loops: list,
+    suspect_edges: set,
+    pgo_cfg,
+    trans_per_suspect: float = 0.75,
+) -> tuple[set, dict]:
+    """Select the consistent subset of suspect-path-crossing loop edges.
+
+    Splits the fragment chain into components at suspect edges, computes the
+    component-alignment gauge each crossing loop edge implies (via healthy-only
+    chains), clusters the gauges, rejects clusters whose rotation or
+    translation disagrees with the full odometry chain beyond the
+    per-suspect-edge budget (see ``PGOConfig`` ``gauge_*``), and returns
+    (set of loop (i, j) to drop, stats).
+    """
+    suspect_starts = {a for a, _ in suspect_edges}
+    comp = np.zeros(nf, int)
+    c = 0
+    for f in range(nf - 1):
+        comp[f] = c
+        if f in suspect_starts:
+            c += 1
+    comp[nf - 1] = c
+    # Healthy-only chain poses (per component, rooted at its first fragment)
+    # and the full chain (suspect edges included) for the rotation prior.
+    cpose = [np.eye(4) for _ in range(nf)]
+    fpose = [np.eye(4) for _ in range(nf)]
+    for f in range(nf - 1):
+        T = np.asarray(odo_T[(f, f + 1)], np.float64)
+        fpose[f + 1] = fpose[f] @ T
+        cpose[f + 1] = cpose[f] @ T if (f, f + 1) not in suspect_edges else np.eye(4)
+    roots = {}
+    for f in range(nf):
+        roots.setdefault(int(comp[f]), f)
+
+    def rot_angle(R):
+        return float(np.degrees(np.arccos(np.clip((np.trace(R[:3, :3]) - 1) / 2, -1.0, 1.0))))
+
+    by_cc = defaultdict(list)
+    for i, j, T in loops:
+        a, b = int(comp[i]), int(comp[j])
+        if a == b:
+            continue
+        G = cpose[i] @ np.asarray(T, np.float64) @ np.linalg.inv(cpose[j])
+        by_cc[(a, b)].append(((i, j), G))
+    drop: set = set()
+    stats = dict(crossing=0, dropped=0, component_pairs=0)
+    for (a, b), lst in by_cc.items():
+        stats["component_pairs"] += 1
+        stats["crossing"] += len(lst)
+        # Budgets from the number of suspect edges between the roots.
+        ra, rb = roots[a], roots[b]
+        lo, hi = min(ra, rb), max(ra, rb)
+        n_sus = sum(1 for (x, y) in suspect_edges if lo <= x < hi)
+        budget = pgo_cfg.gauge_rot_budget_base + pgo_cfg.gauge_rot_budget_per_suspect * n_sus
+        t_budget = pgo_cfg.gauge_trans_budget_base + trans_per_suspect * n_sus
+        # Chain-implied gauge between the same component frames: component
+        # frames are their roots' local frames (cpose[root] = I), so the full
+        # chain gives G_chain = inv(fpose[ra]) @ fpose[rb].
+        G_chain = np.linalg.inv(fpose[ra]) @ fpose[rb]
+        # Greedy clustering by SE3 distance to a representative.
+        clusters: list[list] = []
+        for e, G in lst:
+            placed = False
+            for cl in clusters:
+                D = np.linalg.inv(cl[0][1]) @ G
+                if (
+                    np.linalg.norm(D[:3, 3]) < pgo_cfg.gauge_cluster_trans
+                    and rot_angle(D) < pgo_cfg.gauge_cluster_rot
+                ):
+                    cl.append((e, G))
+                    placed = True
+                    break
+            if not placed:
+                clusters.append([(e, G)])
+        # Reject chain-inconsistent clusters; keep the largest survivor and
+        # any cluster consistent with it.
+        ok_clusters = [
+            cl
+            for cl in clusters
+            if rot_angle(np.linalg.inv(G_chain) @ cl[0][1]) <= budget
+            and np.linalg.norm((np.linalg.inv(G_chain) @ cl[0][1])[:3, 3]) <= t_budget
+        ]
+        if not ok_clusters:
+            # Nothing passes the chain priors: every crossing edge asserts a
+            # component placement the chain says is impossible — aliased
+            # matches. Drop them all and let the chain (and any consistent
+            # edges between other component pairs) place the components.
+            for e, _ in lst:
+                drop.add(e)
+                stats["dropped"] += 1
+            continue
+        winner = max(ok_clusters, key=len)
+        keep = {e for e, _ in winner}
+        for cl in ok_clusters:
+            if cl is winner:
+                continue
+            D = np.linalg.inv(winner[0][1]) @ cl[0][1]
+            if (
+                np.linalg.norm(D[:3, 3]) < 2 * pgo_cfg.gauge_cluster_trans
+                and rot_angle(D) < 2 * pgo_cfg.gauge_cluster_rot
+            ):
+                keep |= {e for e, _ in cl}
+        for e, _ in lst:
+            if e not in keep:
+                drop.add(e)
+                stats["dropped"] += 1
+    return drop, stats
+
+
+def _spanning_tree_init(
+    nf: int, ii, jj, Ts, suspect_edges: set, fallback: np.ndarray
+) -> np.ndarray:
+    """Compose initial poses along a min-cost spanning tree from fragment 0.
+
+    Edge costs: 1 for trusted odometry, 4 for loop edges (pairwise
+    registrations are noisier than healthy tracking), 1000 for suspect
+    odometry (last-resort connectivity only). Falls back to the chained
+    bases for any fragment unreachable through the edge set.
+    """
+    adj: list[list[tuple[float, int, np.ndarray]]] = [[] for _ in range(nf)]
+    for k in range(len(ii)):
+        a, b, T = int(ii[k]), int(jj[k]), np.asarray(Ts[k], np.float64)
+        if b - a == 1:
+            cost = 1000.0 if (a, b) in suspect_edges else 1.0
+        else:
+            cost = 4.0
+        # T maps b-local into a-local: pose_b = pose_a @ T; inverse for a<-b.
+        adj[a].append((cost, b, T))
+        adj[b].append((cost, a, np.linalg.inv(T)))
+    dist = np.full(nf, np.inf)
+    poses = [None] * nf
+    poses[0] = np.asarray(fallback[0], np.float64)
+    dist[0] = 0.0
+    heap = [(0.0, 0)]
+    while heap:
+        d, a = heapq.heappop(heap)
+        if d > dist[a]:
+            continue
+        for cost, b, T in adj[a]:
+            nd = d + cost
+            if nd < dist[b]:
+                dist[b] = nd
+                poses[b] = poses[a] @ T
+                heapq.heappush(heap, (nd, b))
+    out = np.stack(
+        [p if p is not None else np.asarray(fallback[k], np.float64) for k, p in enumerate(poses)]
+    )
+    return out.astype(np.float32)
+
+
+def run_posegraph(cfg: PipelineConfig, device="cuda") -> None:
+    dev = resolve_device(device)
+    out = cfg.p_posegraph()
+    out.mkdir(parents=True, exist_ok=True)
+    reg = cfg.p_registration()
+    bases = io_logfmt.read_log(cfg.p_fragments() / "fragments.log").matrices().astype(np.float32)
+    odo = io_logfmt.read_log(reg / "odometry.log")
+    odo_info = io_logfmt.read_info(reg / "odometry.info")
+    loop = io_logfmt.read_log(reg / "loop.log")
+    loop_info = io_logfmt.read_info(reg / "loop.info")
+
+    # Suspect odometry edges (flagged by tracking health or a rejected chain
+    # refinement in run_registration) are not hard-trusted: they enter the
+    # line process like loop edges, so a broken odometry measurement can be
+    # down-weighted instead of dragging the whole graph.
+    suspect_path = reg / "odometry_suspect.txt"
+    suspect_edges: set[tuple[int, int]] = set()
+    if suspect_path.exists():
+        for line in suspect_path.read_text().splitlines():
+            if line.strip():
+                a, b = map(int, line.split())
+                suspect_edges.add((a, b))
+
+    # Gauge-consensus pre-filter: loop edges crossing suspect stretches are
+    # clustered by the component-alignment gauge they imply; clusters that
+    # disagree with the odometry chain beyond the drift budget are dropped
+    # before the line process (see _gauge_consensus).
+    loop_entries = list(loop.entries)
+    loop_info_entries = list(loop_info.entries)
+    gauge_stats: dict = {}
+    if suspect_edges and loop_entries:
+        nf_ = len(bases)
+        odo_T = {(e.i, e.j): e.transform for e in odo.entries}
+        if all((f, f + 1) in odo_T for f in range(nf_ - 1)):
+            drop, gauge_stats = _gauge_consensus(
+                nf_,
+                odo_T,
+                [(e.i, e.j, e.transform) for e in loop_entries],
+                suspect_edges,
+                cfg.posegraph,
+                trans_per_suspect=cfg.drift_suspect,
+            )
+            if drop:
+                keep_idx = [k for k, e in enumerate(loop_entries) if (e.i, e.j) not in drop]
+                loop_entries = [loop_entries[k] for k in keep_idx]
+                loop_info_entries = [loop_info_entries[k] for k in keep_idx]
+
+    ii = [e.i for e in odo.entries] + [e.i for e in loop_entries]
+    jj = [e.j for e in odo.entries] + [e.j for e in loop_entries]
+    Ts = [e.transform for e in odo.entries] + [e.transform for e in loop_entries]
+    # Suspect odometry edges carry downscaled information in addition to
+    # being line-process-eligible: at full weight a run of mutually
+    # consistent garbage chain edges outweighs the handful of genuine loop
+    # edges that constrain the healthy sub-maps, and the line process then
+    # prunes the truth as the outlier.
+    infos = [
+        e.info * (cfg.posegraph.suspect_info_scale if (e.i, e.j) in suspect_edges else 1.0)
+        for e in odo_info.entries
+    ] + [e.info for e in loop_info_entries]
+    is_odo = [(e.i, e.j) not in suspect_edges for e in odo.entries] + [False] * len(loop_entries)
+    n_odo = len(odo.entries)
+    if not ii:
+        # Single-fragment scene: nothing to optimize — pass the fragment base
+        # pose straight through so downstream stages still run.
+        io_logfmt.write_log(
+            out / "pose.log", io_logfmt.Trajectory.from_matrices(bases.astype(np.float64))
+        )
+        (out / "kept_edges.txt").write_text("")
+        _log("posegraph", "done", edges=0, loops=0, loops_kept=0, seconds=0.0)
+        return
+    edges = EdgeList.build(
+        np.array(ii),
+        np.array(jj),
+        np.stack(Ts).astype(np.float32),
+        np.stack(infos).astype(np.float32),
+        np.array(is_odo),
+        device=dev,
+    )
+    t0 = time.time()
+    init = bases
+    if suspect_edges:
+        # Robust-kernel initialization: the chained-odometry init carries the
+        # blind stretch's full drift, so genuine loop edges start meters off
+        # and the line process zeroes them before they can pull the graph
+        # together. Re-chain the init along a spanning tree that prefers
+        # reliable edges, so every measurement starts within its own noise of
+        # consistency.
+        init = _spanning_tree_init(len(bases), ii, jj, Ts, suspect_edges, bases)
+    res = optimize_pose_graph(torch.as_tensor(init, device=dev), edges, cfg.posegraph)
+    poses = res.poses.cpu().numpy().astype(np.float64)
+    io_logfmt.write_log(out / "pose.log", io_logfmt.Trajectory.from_matrices(poses))
+    kept = res.kept.cpu().numpy()
+    with open(out / "kept_edges.txt", "w") as f:
+        for k in range(n_odo, len(ii)):
+            if kept[k]:
+                f.write(f"{ii[k]} {jj[k]}\n")
+    _log(
+        "posegraph",
+        "done",
+        edges=len(ii),
+        loops=len(loop_entries),
+        loops_kept=int(kept[n_odo:].sum()),
+        suspect_odometry=len(suspect_edges),
+        suspect_odometry_kept=int(kept[:n_odo][~np.array(is_odo[:n_odo])].sum()),
+        **{f"gauge_{k}": v for k, v in gauge_stats.items()},
+        seconds=round(time.time() - t0, 2),
+    )

@@ -1,7 +1,8 @@
 """PyTorch port: it stands apart from JAX and never runs on the CPU unasked.
 
 - Importing the port pulls in neither ``jax`` nor any module of the JAX package.
-- No source file of the port, nor ``chip_smoke.py``, imports either.
+- No source file of the port, nor ``chip_smoke.py``, nor
+  ``kernels_bench_gpu.py``, imports either (or ``kernels_bench``).
 - Entry points default to the card and raise where there is none.
 - Kernel wrappers refuse devices they have no route for.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card and
@@ -20,7 +21,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "elasticreconstruction_tpu_torch"
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|elasticreconstruction_tpu)(\s|\.|,|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|elasticreconstruction_tpu|kernels_bench)(\s|\.|,|$)", re.M)
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -35,8 +36,13 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import elasticreconstruction_tpu_torch, elasticreconstruction_tpu_torch.interop\n"
         "import elasticreconstruction_tpu_torch.registration, elasticreconstruction_tpu_torch.bench_scene\n"
+        "import elasticreconstruction_tpu_torch.registration.retrieval, elasticreconstruction_tpu_torch.posegraph\n"
+        "import elasticreconstruction_tpu_torch.pipeline.run, elasticreconstruction_tpu_torch.odometry\n"
+        "import elasticreconstruction_tpu_torch.elastic, elasticreconstruction_tpu_torch.kernels.cuda.calib\n"
+        "import kernels_bench_gpu, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
-        "       or m == 'elasticreconstruction_tpu' or m.startswith('elasticreconstruction_tpu.')]\n"
+        "       or m == 'elasticreconstruction_tpu' or m.startswith('elasticreconstruction_tpu.')\n"
+        "       or m == 'kernels_bench']\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
@@ -48,15 +54,17 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_no_jax():
-    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernels_bench_gpu.py"]
+    assert len(files) > 30
     offenders = [str(f.relative_to(REPO)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
     # The pattern does catch the forbidden forms.
     for line in ("import jax", "from jax import numpy", "import elasticreconstruction_tpu.core",
-                 "from elasticreconstruction_tpu.kernels import knn", "from elasticreconstruction_tpu import x"):
+                 "from elasticreconstruction_tpu.kernels import knn", "from elasticreconstruction_tpu import x",
+                 "import kernels_bench", "from kernels_bench import _sol"):
         assert _FORBIDDEN.search(line), line
     assert not _FORBIDDEN.search("from elasticreconstruction_tpu_torch import se3")
+    assert not _FORBIDDEN.search("import kernels_bench_gpu")
 
 
 def test_default_device_raises_without_a_card():
@@ -79,6 +87,38 @@ def test_default_device_raises_without_a_card():
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_stage_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    import numpy as np
+
+    import kernels_bench_gpu
+    from elasticreconstruction_tpu_torch import interop
+    from elasticreconstruction_tpu_torch.bench_scene import write_fragments_dir
+    from elasticreconstruction_tpu_torch.pipeline import PipelineConfig, run, stages
+    from elasticreconstruction_tpu_torch.posegraph import EdgeList
+
+    write_fragments_dir(tmp_path, 2, n=200)
+    cfg = PipelineConfig(out_dir=str(tmp_path))
+    edge = (np.zeros(1, int), np.ones(1, int), np.eye(4)[None], np.eye(6)[None], np.ones(1, bool))
+    for call in (
+        lambda: stages.run_registration(cfg),
+        lambda: stages.run_posegraph(cfg),
+        lambda: run.main(["register", "--out", str(tmp_path)]),
+        lambda: run.main(["posegraph", "--out", str(tmp_path)]),
+        lambda: EdgeList.build(*edge),
+        lambda: interop.edges_from_numpy(EdgeList.build(*edge, device="cpu")),
+        lambda: kernels_bench_gpu.calibrate(),
+        lambda: kernels_bench_gpu.bench_kernels({}, {"nn"}),
+        lambda: kernels_bench_gpu.main(["--section", "calibrate"]),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        kernels_bench_gpu.calibrate("cpu")
+    assert not (tmp_path / "registration" / "odometry.log").exists()
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():
