@@ -8,10 +8,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA versions.
 2. Build: compiles every hand-written kernel from ``csrc/`` (one nvcc each, in
    parallel).
-3. Kernel parity at main-path shapes: each kernel against its plain PyTorch
-   version on the card (the pipeline kernels with a partly masked ref set),
+3. Kernel parity: each kernel against its plain PyTorch version on the card,
    plus CUDA-event times of the kernel, the plain version and, where there is
-   one, a library yardstick. The compare+select and threshold-sum chains must
+   one, a library yardstick. The two pipeline kernels are held at every shape
+   the paths launch them at (``NN_SHAPES``, ``ICP_SHAPES``, with a partly
+   masked ref set) and at ragged ones: sizes that are multiples of nothing,
+   fewer refs than one chunk, one batch, refs all masked (which must give
+   (3e38, 0)) and duplicated refs (the first index must win). Every call is
+   made twice and must give the same bits. Their compiled main loop's opcode
+   counts per pair are printed. The compare+select and threshold-sum chains must
    equal their plain versions bit for bit; the FMA chain within 2e-5 relative
    (one rounding per step against the plain version's two, 64 steps).
 4. Registration path at full width: 6 fragments of 20 000 points (the registration
@@ -111,8 +116,33 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# A kernel that spins this many clock cycles (about 5 ms) is queued ahead of a
+# timed run, so that the host queues the whole run while the card is still busy.
+BLOCKER_CYCLES = 10_000_000
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` in ms, after ``warmup`` calls."""
+    """Device time of one ``fn()`` in ms: ``reps`` calls queued back to back behind
+    a spinning kernel, between two CUDA events, after ``warmup`` calls. The
+    host's time to queue a call is hidden as long as it is shorter than the
+    blocker plus the calls before it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(BLOCKER_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def call_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Median ms of one ``fn()`` on an idle card, between two CUDA events: the
+    device time plus the host's time to reach the launch (the wrapper)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -167,8 +197,19 @@ def phase_build() -> None:
     build.load(*build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(build.SOURCES)}")
     for name, log in build.build_logs.items():
-        info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        info = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
         print(f"  ptxas {name}: " + " | ".join(info))
+
+
+# (B, Nq, Nr) of nearest_batch on the paths: coarse ICP, fine ICP and the
+# information-matrix query of a 16-pair batch; coarse and fine of the stage
+# path's 8-pair batches. The first of each list is the one the kernels line reports.
+NN_SHAPES = [(16, 4096, 8192), (16, 1024, 8192), (16, 8192, 8192), (8, 1024, 8192), (8, 4096, 8192)]
+ICP_SHAPES = [(16, 4096, 8192), (16, 1024, 8192), (8, 1024, 8192), (8, 4096, 8192)]
+# Multiples of nothing; fewer refs than one chunk; one batch.
+RAGGED_SHAPES = [(3, 1000, 5003), (2, 700, 20), (1, 4096, 8192)]
+ICP_MAX_DIST = 0.075
 
 
 def nn_inputs(rng, b: int, nq: int, nr: int, dev):
@@ -182,10 +223,23 @@ def nn_inputs(rng, b: int, nq: int, nr: int, dev):
             torch.from_numpy(mask).to(dev))
 
 
-def check_nearest(q, r, m) -> dict:
+def twice(what: str, fn) -> tuple:
+    """``fn()`` called twice; fails unless both calls return the same bits."""
+    first = fn()
+    second = fn()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        if not torch.equal(x, y):
+            fail(f"{what}: two calls on the same inputs differ")
+    return first
+
+
+def check_nearest(q, r, m, *, time_plain: bool = False, note: str = "") -> dict:
     from elasticreconstruction_tpu_torch.kernels.cuda import nn
 
-    d_k, i_k = nn.nearest_batch(q, r, m)
+    b, nq, nr = q.shape[0], q.shape[1], r.shape[1]
+    name = f"nearest_batch {(b, nq, nr)}{note}"
+    d_k, i_k = twice(name, lambda: nn.nearest_batch(q, r, m))
     d_p, i_p = nn.nearest_batch_plain(q, r, m)
     torch.cuda.synchronize()
     bad = (i_k != i_p).nonzero()
@@ -196,35 +250,45 @@ def check_nearest(q, r, m) -> dict:
         rp = r[bad[:, 0], i_p[bad[:, 0], bad[:, 1]].long()].double()
         gap = (((bq - rk) ** 2).sum(-1) - ((bq - rp) ** 2).sum(-1)).abs().max().item()
         if gap >= 1e-6:
-            fail(f"nearest_batch: {len(bad)} index mismatches, exact d2 gap {gap:.3g} >= 1e-6")
+            fail(f"{name}: {len(bad)} index mismatches, exact d2 gap {gap:.3g} >= 1e-6")
     err = (d_k - d_p).abs().max().item()
-    print(f"nearest_batch {tuple(q.shape[:2]) + (r.shape[1],)}: index mismatches {len(bad)}, "
-          f"max |d2 kernel - plain| {err:.3g}")
+    geo = nn.plan(b, nq, nr, nn.sm_count(q.device.index))
+    print(f"{name}: index mismatches {len(bad)}, max |d2 kernel - plain| {err:.3g}, twice the same bits; "
+          f"grid {(geo.tiles, geo.splits, b)} of {nn.THREADS} threads, {geo.range} refs = "
+          f"{16 * geo.range} bytes of dynamic shared memory a block")
     if not err <= 1e-5:
-        fail(f"nearest_batch: max |d2 kernel - plain| {err} > 1e-5")
-    b, nq, nr = q.shape[0], q.shape[1], r.shape[1]
+        fail(f"{name}: max |d2 kernel - plain| {err} > 1e-5")
     r_far = torch.where(m[..., None], r, 1e18)  # masked refs never win the yardstick's min
     ms = cuda_ms(lambda: nn.nearest_batch(q, r, m))
-    plain = cuda_ms(lambda: nn.nearest_batch_plain(q, r, m), reps=5, warmup=1)
+    one_call = call_ms(lambda: nn.nearest_batch(q, r, m))
+    plain = cuda_ms(lambda: nn.nearest_batch_plain(q, r, m), reps=3, warmup=1) if time_plain else None
     lib = cuda_ms(lambda: torch.cdist(q, r_far, compute_mode="use_mm_for_euclid_dist").min(dim=-1), reps=5)
     bnd, by = bound_ms(NN_OPS_PER_PAIR * b * nq * nr, 4 * 3 * b * (nq + nr) + b * nr + 8 * b * nq)
-    print(f"  ms kernel {ms:.4f}, plain {plain:.4f}, cdist+min {lib:.4f}, bound {bnd:.4f} ({by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bnd, "bound_by": by, "shape": [b, nq, nr], "index_mismatches": len(bad)}
+    print(f"  ms kernel {ms:.4f} (one call on an idle card, wrapper included: {one_call:.4f}), "
+          f"plain {'not timed' if plain is None else f'{plain:.4f}'}, "
+          f"cdist+min {lib:.4f}, bound {bnd:.4f} ({by}), time/bound {ms / bnd:.2f}")
+    return {"max_abs_err": err, "ms": ms, "call_ms": one_call, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bnd, "bound_by": by, "shape": [b, nq, nr], "index_mismatches": len(bad),
+            "d2": d_k, "idx": i_k}
 
 
-def check_normal_eqs(rng, b: int, n: int, m: int, max_dist: float, dev) -> dict:
-    from elasticreconstruction_tpu_torch.kernels.cuda import icp_step
-
+def icp_inputs(rng, b: int, n: int, m: int, dev) -> list:
     dst, nrm = surface(rng, (b, m))
     p, _ = surface(rng, (b, n))
     p += rng.normal(0.0, 0.02, p.shape).astype(np.float32)
     mask = np.ones((b, m), bool)
     mask[:, int(m * 0.9):] = False
     w = (rng.uniform(size=(b, n)) > 0.05).astype(np.float32)
-    args = [torch.from_numpy(x).to(dev) for x in (p, w, dst, nrm, mask)]
-    H1, g1, n1, wrr1 = icp_step.normal_eqs_batch(*args, max_dist=max_dist)
-    H2, g2, n2, wrr2 = icp_step.normal_eqs_batch_plain(*args, max_dist=max_dist)
+    return [torch.from_numpy(x).to(dev) for x in (p, w, dst, nrm, mask)]
+
+
+def check_normal_eqs(args: list, *, time_plain: bool = False, note: str = "") -> dict:
+    from elasticreconstruction_tpu_torch.kernels.cuda import icp_step
+
+    b, n, m = args[0].shape[0], args[0].shape[1], args[2].shape[1]
+    name = f"normal_eqs_batch {(b, n, m)}{note}"
+    H1, g1, n1, wrr1 = twice(name, lambda: icp_step.normal_eqs_batch(*args, max_dist=ICP_MAX_DIST))
+    H2, g2, n2, wrr2 = icp_step.normal_eqs_batch_plain(*args, max_dist=ICP_MAX_DIST)
     torch.cuda.synchronize()
 
     def rel(a, c):
@@ -232,19 +296,69 @@ def check_normal_eqs(rng, b: int, n: int, m: int, max_dist: float, dev) -> dict:
 
     errs = {"H": rel(H1, H2), "g": rel(g1, g2), "wrr": rel(wrr1, wrr2),
             "n_in": (n1 - n2).abs().max().item()}
-    print(f"normal_eqs_batch {(b, n, m)}: rel err H {errs['H']:.3g}, g {errs['g']:.3g}, "
-          f"wrr {errs['wrr']:.3g}, |n_in diff| {errs['n_in']}, n_in min {n2.min().item():.0f}")
+    print(f"{name}: rel err H {errs['H']:.3g}, g {errs['g']:.3g}, wrr {errs['wrr']:.3g}, "
+          f"|n_in diff| {errs['n_in']}, n_in min {n2.min().item():.0f}, twice the same bits")
     if not (errs["H"] < 1e-3 and errs["g"] < 1e-3 and errs["wrr"] < 1e-4 and errs["n_in"] <= 0.5):
-        fail(f"normal_eqs_batch disagrees with its plain version: {errs}")
+        fail(f"{name} disagrees with its plain version: {errs}")
+    if not torch.equal(H1, H1.transpose(1, 2)):
+        fail(f"{name}: H is not symmetric")
     max_abs = max((H1 - H2).abs().max().item(), (g1 - g2).abs().max().item())
-    ms = cuda_ms(lambda: icp_step.normal_eqs_batch(*args, max_dist=max_dist))
-    plain = cuda_ms(lambda: icp_step.normal_eqs_batch_plain(*args, max_dist=max_dist), reps=5, warmup=1)
+    ms = cuda_ms(lambda: icp_step.normal_eqs_batch(*args, max_dist=ICP_MAX_DIST))
+    one_call = call_ms(lambda: icp_step.normal_eqs_batch(*args, max_dist=ICP_MAX_DIST))
+    plain = (cuda_ms(lambda: icp_step.normal_eqs_batch_plain(*args, max_dist=ICP_MAX_DIST), reps=3, warmup=1)
+             if time_plain else None)
     bnd, by = bound_ms(NN_OPS_PER_PAIR * b * n * m + ICP_OPS_PER_QUERY * b * n,
                        4 * (4 * b * n + 6 * b * m) + b * m + 4 * 29 * b)
-    print(f"  ms kernel {ms:.4f}, plain {plain:.4f}, bound {bnd:.4f} ({by})")
+    print(f"  ms kernel {ms:.4f} (one call on an idle card, wrapper included: {one_call:.4f}), "
+          f"plain {'not timed' if plain is None else f'{plain:.4f}'}, "
+          f"bound {bnd:.4f} ({by}), time/bound {ms / bnd:.2f}")
     return {"max_abs_err": max_abs, "rel_err_H": errs["H"], "rel_err_g": errs["g"], "ms": ms,
+            "call_ms": one_call,
             "plain_ms": plain, "library_ms": None, "bound_ms": bnd, "bound_by": by,
-            "shape": [b, n, m]}
+            "shape": [b, n, m], "n_in": n1}
+
+
+def check_edge_cases(rng, dev) -> None:
+    """Refs all masked, and duplicated refs, through both pipeline kernels."""
+    q, r, m = nn_inputs(rng, 2, 300, 777, dev)
+    none = torch.zeros_like(m)
+    out = check_nearest(q, r, none, note=" all refs masked")
+    if not ((out["d2"] == 3e38).all() and (out["idx"] == 0).all()):
+        fail("nearest_batch: refs all masked must give (3e38, 0)")
+    args = icp_inputs(rng, 2, 300, 777, dev)
+    args[4] = torch.zeros_like(args[4])
+    if check_normal_eqs(args, note=" all refs masked")["n_in"].abs().max().item() != 0.0:
+        fail("normal_eqs_batch: refs all masked must give n_in = 0")
+    # 500 distinct refs, each at 4 indices: the nearest is always in the first 500.
+    q, r, m = nn_inputs(rng, 2, 1000, 500, dev)
+    m = torch.ones_like(m).repeat(1, 4)
+    out = check_nearest(q, r.repeat(1, 4, 1), m, note=" refs repeated 4 times")
+    if not (out["idx"] < 500).all():
+        fail("nearest_batch: the first index of duplicated refs must win")
+    args = icp_inputs(rng, 2, 1000, 500, dev)
+    args[2], args[3] = args[2].repeat(1, 4, 1), args[3].repeat(1, 4, 1)
+    args[4] = torch.ones_like(args[4]).repeat(1, 4)
+    check_normal_eqs(args, note=" refs repeated 4 times")
+
+
+def print_main_loops() -> None:
+    """Opcode counts per (query, ref) pair of each pipeline kernel's compiled main loop.
+
+    A diagnostic: the loop with the most FFMA is the ref scan, whose body is one
+    chunk of refs against a thread's queries.
+    """
+    from elasticreconstruction_tpu_torch.kernels.cuda import calib, nn
+
+    pairs = nn.CHUNK * nn.QUERIES_PER_THREAD
+    for lib, kernel in (("nn", "nearest_kernel"), ("icp_step", "normal_eqs_kernel")):
+        loops = [lp for name, found in calib.loop_bodies(calib.library_sass(lib)).items()
+                 if kernel in name for lp in found]
+        if not loops:
+            fail(f"{kernel}: no loop found in its SASS")
+        body = max(loops, key=lambda lp: (lp.get("FFMA", 0), -lp["total"]))  # the innermost such loop
+        print(f"  SASS main loop of {kernel} ({pairs} pairs per body): {body['total']} instructions = "
+              f"{body['total'] / pairs:.3f} per pair; "
+              + ", ".join(f"{op} {n}" for op, n in sorted(body.items()) if op != "total"))
 
 
 def check_calib_kernels() -> dict:
@@ -299,11 +413,20 @@ def check_calib_kernels() -> dict:
 def phase_kernel_parity() -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    # ICP fine phase (8192-point fine clouds at src stride 2) and the infomat query.
-    nn_fine = check_nearest(*nn_inputs(rng, 16, 4096, 8192, dev))
-    nn_info = check_nearest(*nn_inputs(rng, 16, 8192, 8192, dev))
-    icp = check_normal_eqs(rng, 16, 4096, 8192, 0.075, dev)
-    return {"nearest_batch": dict(nn_fine, infomat_shape=nn_info), "normal_eqs_batch": icp,
+    print_main_loops()
+    nn_by_shape = [check_nearest(*nn_inputs(rng, *shape, dev), time_plain=True) for shape in NN_SHAPES]
+    icp_by_shape = [check_normal_eqs(icp_inputs(rng, *shape, dev), time_plain=True) for shape in ICP_SHAPES]
+    for shape in RAGGED_SHAPES:
+        check_nearest(*nn_inputs(rng, *shape, dev))
+        check_normal_eqs(icp_inputs(rng, *shape, dev))
+    check_edge_cases(rng, dev)
+
+    def numbers(results):
+        return [{k: v for k, v in res.items() if not torch.is_tensor(v)} for res in results]
+
+    nn_by_shape, icp_by_shape = numbers(nn_by_shape), numbers(icp_by_shape)
+    return {"nearest_batch": dict(nn_by_shape[0], by_shape=nn_by_shape),
+            "normal_eqs_batch": dict(icp_by_shape[0], by_shape=icp_by_shape),
             **check_calib_kernels()}
 
 
@@ -313,11 +436,21 @@ def launch_counts() -> dict:
     return {"nearest_batch": nn.launches, "normal_eqs_batch": icp_step.launches, **calib.launches}
 
 
+def launches_by_shape() -> dict:
+    """Launches of the two pipeline kernels since the last reset, by (B, Nq, Nr)."""
+    from elasticreconstruction_tpu_torch.kernels.cuda import icp_step, nn
+
+    return {name: {str(shape): count for shape, count in sorted(mod.launches_by_shape.items())}
+            for name, mod in (("nearest_batch", nn), ("normal_eqs_batch", icp_step))}
+
+
 def reset_launch_counts() -> None:
     from elasticreconstruction_tpu_torch.kernels.cuda import calib, icp_step, nn
 
     nn.launches = 0
     icp_step.launches = 0
+    nn.launches_by_shape.clear()
+    icp_step.launches_by_shape.clear()
     for name in calib.launches:
         calib.launches[name] = 0
 
@@ -342,6 +475,7 @@ def phase_calibration() -> dict:
               + ", ".join(f"{op} {n}" for op, n in sorted(counts.items())))
     entries = kb.bench_kernels(cal["peaks"], None, "cuda")
     counts = launch_counts()
+    print(json.dumps({"calibration_launches_by_shape": launches_by_shape()}))
     require_launched("calibration", counts, counts)
     print(json.dumps({"calibrated_peaks": {
         k: {"value": v, "share_of_data_sheet": cal["share_of_data_sheet"][k]} for k, v in cal["peaks"].items()}}))
@@ -577,7 +711,10 @@ def device_profile(name: str, fn, top: int = 6, warm: bool = True) -> dict:
     out = {"profile": name, "wall_ms": wall_ms,
            "device_busy_ms": busy_ms if rows else "not measured",
            "busy_share": busy_ms / wall_ms if rows else "not measured",
-           "top_device_ops": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in rows[:top]]}
+           "top_device_ops": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in rows[:top]],
+           # The two pipeline kernels, wherever they rank: [name, device ms, launches].
+           "pipeline_kernels": [[k, dev_us(e) / 1e3, e.count] for e in rows
+                                for k in ("nearest_kernel", "normal_eqs_kernel") if k in e.key]}
     print(json.dumps(out))
     return out
 
@@ -618,6 +755,7 @@ def phase_stages(num_frag: int = 24, n: int = 20000, seed: int = 0) -> dict:
             torch.cuda.synchronize()
             walls[verb + "_s"] = time.perf_counter() - t0
         counts = launch_counts()
+        print(json.dumps({"stage_launches_by_shape": launches_by_shape()}))
         require_launched("stage", counts, ["nearest_batch"])
 
         reg, pg = os.path.join(tmp, "registration"), os.path.join(tmp, "posegraph")
@@ -746,6 +884,7 @@ def main() -> int:
     reset_launch_counts()
     out = main_path(dev, num_frag, n, cfg, batch=batch, reps=reps)
     by_path = {"registration": launch_counts()}
+    print(json.dumps({"registration_launches_by_shape": launches_by_shape()}))
     print(f"main path: {out['pairs']} pairs in {out['wall_s']:.3f} s = "
           f"{out['pairs'] / out['wall_s']:.2f} pairs/s (timed pass: prep + {out['pairs'] // batch} "
           f"batches of {batch}); kernel launches {by_path['registration']}, "
@@ -783,7 +922,8 @@ def main() -> int:
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                         "shape": k["shape"]})
-    print(json.dumps({"nearest_batch_infomat_shape": parity["nearest_batch"]["infomat_shape"]}))
+    print(json.dumps({"pipeline_kernels_by_shape": {
+        name: parity[name]["by_shape"] for name in ("nearest_batch", "normal_eqs_batch")}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -9,9 +9,10 @@ test suite imports every module on a machine with no ``nvcc``.
 
 Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, plus the flags
 :data:`SOURCE_FLAGS` names for each. ``nn`` and ``icp_step`` take
-``-fmad=false``: their f32 distance arithmetic must round like the separate
-elementwise ops of their plain PyTorch versions (see ``csrc/nn.cuh``).
-``calib`` takes ``-fmad=true``: its FMA chain exists to execute fused
+``-fmad=false``: nvcc contracts no multiply and add of theirs on its own, so
+every operation rounds as the plain PyTorch versions say it does; the three
+fused multiply-adds of the distance key are asked for by name (``__fmaf_rn``,
+see ``csrc/nn.cuh``), and the plain version mirrors them. ``calib`` takes ``-fmad=true``: its FMA chain exists to execute fused
 multiply-adds, and under ``-fmad=false`` it would execute a multiply and an add
 and measure half the rate. ``-Xptxas -v`` output (registers, shared memory,
 spills) is kept in :data:`build_logs`.
@@ -26,6 +27,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -100,6 +103,30 @@ def load(*names: str) -> list[ctypes.CDLL]:
         for n, path in todo.items():
             _libs[n] = ctypes.CDLL(str(path))
         return [_libs[n] for n in names]
+
+
+_scratch: dict[torch.device, torch.Tensor] = {}
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _cached(cache: dict, device: torch.device, n: int, dtype, make) -> torch.Tensor:
+    buf = cache.get(device)
+    if buf is None or buf.numel() < n:
+        buf = cache[device] = make(max(n, 1), dtype=dtype, device=device)
+    return buf
+
+
+def scratch(device: torch.device, floats: int) -> torch.Tensor:
+    """At least ``floats`` f32 of uninitialised device scratch, kept per device
+    and grown on demand. Kernels of one device share it, so their launches must
+    stay on one stream, where they run one after the other."""
+    return _cached(_scratch, device, floats, torch.float32, torch.empty)
+
+
+def counters(device: torch.device, ints: int) -> torch.Tensor:
+    """At least ``ints`` int32 ticket counters, all zero, kept per device. A
+    kernel that counts arrivals on them sets each back to 0 before it ends."""
+    return _cached(_counters, device, ints, torch.int32, torch.zeros)
 
 
 def check(err: int, what: str) -> None:

@@ -173,33 +173,48 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found: it ships with the CUDA toolkit beside nvcc")
 
 
-def loop_body_counts(sass: str) -> dict[str, dict[str, int]]:
-    """Per kernel of a ``cuobjdump -sass`` listing: the opcode counts of its loop body.
+def loop_bodies(sass: str) -> dict[str, list[dict[str, int]]]:
+    """Per kernel of a ``cuobjdump -sass`` listing: the opcode counts of each of its loops.
 
-    The loop body is the span from the target of the kernel's last backward
-    branch to that branch. Keys are kernel names as mangled by nvcc; each value
-    maps an opcode (``FFMA``, ``FSETP``, ``FSEL``, ...) to its count, with
-    ``"total"`` for all instructions of the body.
+    A loop is the span from the target of a backward branch to that branch;
+    loops come in the order of their branches. Keys are kernel names as
+    mangled by nvcc; each loop maps an opcode (``FFMA``, ``FSETP``, ``FSEL``,
+    ...) to its count, with ``"total"`` for all instructions of the span.
     """
-    out: dict[str, dict[str, int]] = {}
+    out: dict[str, list[dict[str, int]]] = {}
     marks = list(_FUNC.finditer(sass))
     for n, mark in enumerate(marks):
         text = sass[mark.end() : marks[n + 1].start() if n + 1 < len(marks) else len(sass)]
         instrs = [(int(a, 16), op, args) for a, op, _, args in _INSTR.findall(text)]
-        span = None
+        loops = []
         for addr, op, args in instrs:
             target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
-            if target and int(target.group(1), 16) < addr:
-                span = (int(target.group(1), 16), addr)
-        if span is None:
-            continue
-        counts: dict[str, int] = {"total": 0}
-        for addr, op, _ in instrs:
-            if span[0] <= addr <= span[1]:
-                counts[op] = counts.get(op, 0) + 1
-                counts["total"] += 1
-        out[mark.group(1)] = counts
+            if not (target and int(target.group(1), 16) < addr):
+                continue
+            counts: dict[str, int] = {"total": 0}
+            for at, other, _ in instrs:
+                if int(target.group(1), 16) <= at <= addr:
+                    counts[other] = counts.get(other, 0) + 1
+                    counts["total"] += 1
+            loops.append(counts)
+        out[mark.group(1)] = loops
     return out
+
+
+def loop_body_counts(sass: str) -> dict[str, dict[str, int]]:
+    """Per kernel of a ``cuobjdump -sass`` listing: the opcode counts of its last
+    loop (see :func:`loop_bodies`); kernels without a loop are left out."""
+    return {kernel: loops[-1] for kernel, loops in loop_bodies(sass).items() if loops}
+
+
+def library_sass(name: str) -> str:
+    """The ``cuobjdump -sass`` listing of the built library of ``csrc/<name>.cu``."""
+    build.load(name)
+    proc = subprocess.run(
+        [_cuobjdump(), "-sass", str(build.lib_path(name))],
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    return proc.stdout
 
 
 def sass_counts() -> dict[str, dict[str, int]]:
@@ -208,12 +223,7 @@ def sass_counts() -> dict[str, dict[str, int]]:
 
     Keys are the wrapper names; builds the library if needed.
     """
-    build.load("calib")
-    proc = subprocess.run(
-        [_cuobjdump(), "-sass", str(build.lib_path("calib"))],
-        capture_output=True, text=True, timeout=120, check=True,
-    )
-    by_kernel = loop_body_counts(proc.stdout)
+    by_kernel = loop_body_counts(library_sass("calib"))
     out = {}
     for name, kernel in _KERNEL_OF.items():
         found = [v for k, v in by_kernel.items() if kernel in k]

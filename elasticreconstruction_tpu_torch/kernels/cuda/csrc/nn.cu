@@ -1,22 +1,14 @@
 // nearest_batch: per batch and query, the nearest valid reference point.
 //
 // Replaces the TPU kernel elasticreconstruction_tpu/kernels/pallas/nn.py
-// (_nearest_kernel, launched by nearest_batch at nn.py:87). That kernel ran
-// the |q|^2+|r|^2-2q.r distance tile on the MXU in f32 and folded it into a
-// running (min, argmin) held in VMEM across a sequential grid over ref blocks.
-//
-// On Hopper the contraction is K=3: far too thin for tensor cores, and TF32
-// would break the argmin, so the distances run on the f32 CUDA cores. The
-// work is (B * Nq * Nr) distance evaluations of ~8 f32 operations each and a
-// few bytes per query, so the kernel is bound by f32 operations, not memory
-// (16 x 4096 x 8192 = 5.4e8 pairs per ICP step: ~4.3e9 ops, ~64 us at the
-// H100's 67 TFLOP/s, against ~0.8 MB of traffic). The design follows: each
-// thread keeps its query and running (min, argmin) in registers, ref tiles
-// with their mask folded into a +3e38 offset stream through shared memory and
-// are read as warp-wide broadcasts, and each query's refs are split four ways
-// inside the block so that even the 1024-query coarse ICP phase fills the
-// card. The batch is the grid's y dimension. See nn.cuh for the arithmetic
-// contract and the tie rule.
+// (_nearest_kernel, launched by nearest_batch at nn.py:87). The bound (f32
+// operations on the CUDA cores, 8 per pair), what the first CUDA version of
+// this kernel lost against it and what this one does about it are set out in
+// nn.cuh, whose routines do all the work: this file is one kernel that loads a
+// thread's four queries, searches its block's range of refs, merges the ref
+// splits in the block that finishes last, and there writes
+// d2 = max(|q|^2 + key, 0) and the index. One launch, no atomics on floats,
+// the same bits from run to run.
 #include "nn.cuh"
 
 namespace {
@@ -24,34 +16,44 @@ namespace {
 __global__ void __launch_bounds__(er::kThreads)
 nearest_kernel(const float* __restrict__ query, const float* __restrict__ ref,
                const uint8_t* __restrict__ mask, float* __restrict__ d2_out,
-               int32_t* __restrict__ idx_out, int nq, int nr) {
-  const int b = blockIdx.y;
-  const int slot = threadIdx.x % er::kQueries;
-  const int q = blockIdx.x * er::kQueries + slot;
-  const bool live = q < nq;
-  const float* qp = query + (static_cast<int64_t>(b) * nq + (live ? q : 0)) * 3;
-  const float qx = live ? qp[0] : 0.0f;
-  const float qy = live ? qp[1] : 0.0f;
-  const float qz = live ? qp[2] : 0.0f;
-  float best_d;
-  int best_i;
-  er::nn_block(ref + static_cast<int64_t>(b) * nr * 3, mask + static_cast<int64_t>(b) * nr,
-               nr, qx, qy, qz, best_d, best_i);
-  if (threadIdx.x < er::kQueries && live) {
-    d2_out[static_cast<int64_t>(b) * nq + q] = best_d;
-    idx_out[static_cast<int64_t>(b) * nq + q] = best_i;
+               int32_t* __restrict__ idx_out, float* part_key, int* part_idx, int* counters,
+               int nq, int nr, int range) {
+  extern __shared__ float4 tile[];
+  const size_t b = blockIdx.z;
+  const er::Queries q = er::load_queries(query + b * nq * 3, nq);
+  float best[er::kQ];
+  int best_i[er::kQ];
+  er::nn_search(ref + b * nr * 3, mask + b * nr, nr, blockIdx.y * range, range, q, tile, best,
+                best_i);
+  if (!er::nn_merge(part_key, part_idx, counters, best, best_i)) return;
+#pragma unroll
+  for (int j = 0; j < er::kQ; ++j) {
+    if (q.live[j]) {
+      d2_out[b * nq + q.index[j]] = er::sqdist(q.x[j], q.y[j], q.z[j], best[j]);
+      idx_out[b * nq + q.index[j]] = best_i[j];
+    }
   }
 }
 
 }  // namespace
 
 // query (B, Nq, 3) f32, ref (B, Nr, 3) f32, ref_mask (B, Nr) bool as bytes
-// -> d2 (B, Nq) f32, idx (B, Nq) int32. All contiguous, on the device.
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// -> d2 (B, Nq) f32, idx (B, Nq) int32. scratch: 2 * B * splits * tiles * 512
+// f32 (tiles = ceil(Nq / 512)); counters: B * tiles int32, all zero, left all
+// zero. Each block scans `range` refs (a multiple of 32, at most 2048);
+// splits * range covers Nr. All contiguous, on the device. Launches on
+// `stream`; returns cudaGetLastError() of the launch, or cudaErrorInvalidValue
+// for a geometry the kernel does not take.
 extern "C" int er_nearest_batch(const float* query, const float* ref, const uint8_t* ref_mask,
-                                float* d2, int32_t* idx, int b, int nq, int nr,
-                                cudaStream_t stream) {
-  const dim3 grid((nq + er::kQueries - 1) / er::kQueries, b);
-  nearest_kernel<<<grid, er::kThreads, 0, stream>>>(query, ref, ref_mask, d2, idx, nq, nr);
+                                float* d2, int32_t* idx, float* scratch, int* counters, int b,
+                                int nq, int nr, int splits, int range, cudaStream_t stream) {
+  if (range <= 0 || range % er::kChunk != 0 || range > er::kMaxRange || splits <= 0 ||
+      static_cast<int64_t>(splits) * range < nr || static_cast<int64_t>(splits - 1) * range >= nr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (nq + er::kQueriesPerBlock - 1) / er::kQueriesPerBlock;
+  const size_t partial = static_cast<size_t>(b) * splits * tiles * er::kQueriesPerBlock;
+  nearest_kernel<<<dim3(tiles, splits, b), er::kThreads, range * sizeof(float4), stream>>>(
+      query, ref, ref_mask, d2, idx, scratch, reinterpret_cast<int*>(scratch + partial), counters,
+      nq, nr, range);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,23 +5,33 @@ each batch: nearest dst point of every transformed source point, gather of
 the matched point q and normal n, weight ``w = src_w * [d2 < max_dist^2]``,
 residual ``r = n.(p - q)`` and Jacobian ``J = [n, p x n]``; returns
 ``H = sum w J^T J (B, 6, 6)``, ``g = sum w J r (B, 6)``, ``n_in = sum w (B,)``
-and ``wrr = sum w r^2 (B,)``.
+and ``wrr = sum w r^2 (B,)``. The search, its arithmetic and its tie rule are
+those of ``kernels/cuda/nn.py``, in both routes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ...core.types import f32_square
 from . import build
+from . import nn as _nn
 from .nn import nearest_batch_plain
 
 launches = 0  # kernel launches since the last reset (set to 0 to reset)
+launches_by_shape: dict[tuple[int, int, int], int] = {}  # the same by (B, N, M); clear() to reset
 
-_NUM_SUMS = 29
-_IU = torch.triu_indices(6, 6)  # row-major upper triangle: the kernel's H order
+_NUM_SUMS = 29  # per (batch, query tile) in scratch: 21 upper-triangle H, 6 g, n_in, wrr
+_OUT_WIDTH = 44  # the kernel's output row: 36 H (row-major, symmetric), 6 g, n_in, wrr
+
+
+def unpack_sums(out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Views ``(H (B, 6, 6), g (B, 6), n_in (B,), wrr (B,))`` of the kernel's output ``(B, 44)``."""
+    b = out.shape[0]
+    return out[:, :36].view(b, 6, 6), out[:, 36:42], out[:, 42], out[:, 43]
 
 
 def normal_eqs_from_matches(p, src_w, dst_pts, dst_nrm, d2, idx, max_dist):
@@ -47,14 +57,20 @@ def normal_eqs_batch_plain(p, src_w, dst_pts, dst_nrm, dst_mask, *, max_dist: fl
     return normal_eqs_from_matches(p, src_w, dst_pts, dst_nrm, d2, idx, max_dist)
 
 
-def _library() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _kernel():
     (lib,) = build.load("icp_step")
+    _nn.check_geometry(lib)
     fn = lib.er_normal_eqs_batch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.er_normal_eqs_blocks.argtypes = [ctypes.c_int]
-    lib.er_normal_eqs_blocks.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _count_launch(shape: tuple[int, int, int]) -> None:
+    global launches
+    launches += 1
+    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
 
 
 def normal_eqs_batch(p, src_w, dst_pts, dst_nrm, dst_mask, *, max_dist: float):
@@ -63,10 +79,12 @@ def normal_eqs_batch(p, src_w, dst_pts, dst_nrm, dst_mask, *, max_dist: float):
     ``p (B, N, 3)`` transformed src points, ``src_w (B, N)`` 0/1 f32 src
     validity, ``dst_pts``/``dst_nrm (B, M, 3)``, ``dst_mask (B, M)``. Returns
     ``(H (B, 6, 6), g (B, 6), n_in (B,), wrr (B,))``; matches farther than
-    ``max_dist`` get zero weight. CUDA tensors launch ``csrc/icp_step.cu``;
-    CPU tensors run :func:`normal_eqs_batch_plain`.
+    ``max_dist`` get zero weight. CUDA tensors launch ``csrc/icp_step.cu`` (one
+    launch, which writes one ``(B, 44)`` buffer that the results are views of);
+    CPU tensors run :func:`normal_eqs_batch_plain`. The kernel's scratch is
+    cached per device (``build.scratch``): launches of one device must stay on
+    one stream.
     """
-    global launches
     if p.device.type == "cpu":
         return normal_eqs_batch_plain(p, src_w, dst_pts, dst_nrm, dst_mask, max_dist=max_dist)
     if p.device.type != "cuda":
@@ -83,21 +101,20 @@ def normal_eqs_batch(p, src_w, dst_pts, dst_nrm, dst_mask, *, max_dist: float):
     )
     if m == 0:
         raise ValueError("normal_eqs_batch needs at least one dst point")
-    lib = _library()
-    out = torch.zeros((b, _NUM_SUMS), dtype=torch.float32, device=p.device)
-    if b * n > 0:
-        partial = torch.empty(
-            (b, lib.er_normal_eqs_blocks(n), _NUM_SUMS), dtype=torch.float32, device=p.device
-        )
-        err = lib.er_normal_eqs_batch(
-            p.data_ptr(), src_w.data_ptr(), dst_pts.data_ptr(), dst_nrm.data_ptr(),
-            dst_mask.data_ptr(), partial.data_ptr(), out.data_ptr(), b, n, m,
-            f32_square(max_dist), torch.cuda.current_stream(p.device).cuda_stream,
-        )
-        build.check(err, "normal_eqs_batch")
-        launches += 1
-    iu = _IU.to(p.device)
-    H = torch.zeros((b, 6, 6), dtype=torch.float32, device=p.device)
-    H[:, iu[0], iu[1]] = out[:, :21]
-    H[:, iu[1], iu[0]] = out[:, :21]  # mirror the upper triangle
-    return H, out[:, 21:27], out[:, 27], out[:, 28]
+    if b * n == 0:
+        return unpack_sums(torch.zeros((b, _OUT_WIDTH), dtype=torch.float32, device=p.device))
+    fn = _kernel()
+    geo = _nn.plan(b, n, m, _nn.sm_count(p.device.index))
+    scratch, counters = _nn.search_scratch(
+        p.device, b, geo, extra_floats=b * geo.tiles * _NUM_SUMS, extra_counters=b
+    )
+    out = torch.empty((b, _OUT_WIDTH), dtype=torch.float32, device=p.device)
+    err = fn(
+        p.data_ptr(), src_w.data_ptr(), dst_pts.data_ptr(), dst_nrm.data_ptr(),
+        dst_mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+        b, n, m, geo.splits, geo.range, f32_square(max_dist),
+        torch.cuda.current_stream(p.device).cuda_stream,
+    )
+    build.check(err, "normal_eqs_batch")
+    _count_launch((b, n, m))
+    return unpack_sums(out)

@@ -278,7 +278,8 @@ def bench_kernels(peaks: dict, want=None, device="cuda") -> list[dict]:
     r = on_card(rng.uniform(-1.5, 1.5, (B, NR, 3)))
     msk = torch.ones((B, NR), dtype=torch.bool, device=dev)
     shape = f"B={B} NQ={NQ} NR={NR}"
-    # csrc/nn.cuh, per (query, ref) pair: 3 mul + 2 add (dot), 1 add, 1 sub, 1 min.
+    # Per (query, ref) pair: 3 multiplies and 2 adds of the dot product, 2 adds for
+    # the norms, 1 min (csrc/nn.cuh does them as 3 FMA and a min, the norms per point).
     nn_ops = el * 8
     nn_bytes = B * (NQ * 12 + NR * 13 + NQ * 8)  # q, r + 1-byte mask, (d2, idx) out
 
