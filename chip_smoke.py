@@ -42,7 +42,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    distance from fragment 0, and after ``run_posegraph`` with 32 Gauss-Newton
    steps per alternation instead of 8, within 5 cm at every fragment (see
    ``POSE_LOG_*`` below for why the two differ).
-7. One JSON line of per-kernel numbers, then the last line
+7. Fragments path: the port renders a synthetic dataset on the card (the
+   livingroom, config 3's orbit of radius 1.1 m at 1.3 m, 151 frames at its
+   per-frame motion, PrimeSense 640x480, 1 cm depth noise, seed 0, written as
+   PNG), then the ``fragments`` (3 fragments of 50 frames, the ``full``
+   preset), ``register`` and ``posegraph`` CLI verbs. Every local pose within
+   2 cm / 0.02 rad of ground truth, every fragment's tracking fitness above
+   0.5, more than 20 000 points per cloud, the clouds on the scene surface
+   (mean |SDF| under 3 cm), both odometry edges within 2 cm / 0.02 rad at the
+   fragment's centroid, and ``nearest_batch`` launched by ``register``. Printed:
+   render and verb seconds, frames/s, per-frame ms of fuse, raycast, the
+   Gauss-Newton levels of ``track_frame`` and surface extraction (device time
+   by ``cuda_ms``, wall time, profiled device-busy time), host synchronisations
+   per frame, peak memory and the device profile of one ``build_fragment``.
+8. One JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
@@ -97,6 +110,15 @@ POSE_LOG_DEFAULT_PER_M = 0.01
 FRAGMENT_SPACING_M = 0.8
 POSE_LOG_CONVERGED_M = 0.05
 CONVERGED_INNER_ITERATIONS = 32
+# Fragments path: milestone config 3's scene and orbit (radius 1.1 m, height
+# 1.3 m, 1 cm depth noise), cut from 2550 frames to 151 at the same motion
+# per frame: 3 fragments of 50 frames at the full preset.
+FRAG_FRAMES = 151
+FRAG_ORBIT = dict(scene="livingroom", trajectory="orbit", radius=1.1, height=1.3,
+                  sweep=2 * np.pi * FRAG_FRAMES / 2550, depth_noise=0.01)
+FRAG_MIN_POINTS = 20000
+FRAG_MIN_FITNESS = 0.5
+FRAG_SURFACE_M = 0.03  # mean |SDF| at the cloud points (tests/test_odometry.py)
 # FMA chain against its plain version: the kernel rounds once per step, the
 # plain version twice (multiply, add), each up to 2^-24 relative, over 64
 # steps whose multiplier 1 + k ulp rounds the same way every step: up to
@@ -712,6 +734,7 @@ def device_profile(name: str, fn, top: int = 6, warm: bool = True) -> dict:
            "device_busy_ms": busy_ms if rows else "not measured",
            "busy_share": busy_ms / wall_ms if rows else "not measured",
            "top_device_ops": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in rows[:top]],
+           "kernels": sum(e.count for e in rows),
            # The two pipeline kernels, wherever they rank: [name, device ms, launches].
            "pipeline_kernels": [[k, dev_us(e) / 1e3, e.count] for e in rows
                                 for k in ("nearest_kernel", "normal_eqs_kernel") if k in e.key]}
@@ -843,6 +866,181 @@ def phase_stages(num_frag: int = 24, n: int = 20000, seed: int = 0) -> dict:
     return out
 
 
+def frame_op_times(vol, depth, pose, intr, cfg) -> dict:
+    """Per-frame cost of each op of the fragment loop at full width: device time
+    (``cuda_ms``), wall time of one call on an idle card (``call_ms``) and the
+    profiled device-busy time with its kernel count."""
+    from elasticreconstruction_tpu_torch.kernels import raycast, tsdf
+    from elasticreconstruction_tpu_torch.odometry import kinfu
+
+    ocfg = cfg.odometry
+    model = raycast.raycast(vol, pose, intr, depth_min=ocfg.depth_min, depth_max=ocfg.depth_max,
+                            num_steps=ocfg.raycast_steps)
+    depths, intrs = [depth], [intr]
+    for _ in range(ocfg.levels - 1):
+        depths.append(kinfu.pyramid_down(depths[-1]))
+        intrs.append(intrs[-1].scaled(0.5))
+    ops = {
+        "fuse": lambda: tsdf.fuse(vol, depth, pose, intr, max_weight=cfg.max_weight,
+                                  depth_min=cfg.depth_min, depth_max=cfg.depth_max),
+        "raycast": lambda: raycast.raycast(vol, pose, intr, depth_min=ocfg.depth_min,
+                                           depth_max=ocfg.depth_max, num_steps=ocfg.raycast_steps),
+        **{f"track_frame level {lvl} ({ocfg.iterations[lvl]} GN steps)":
+           (lambda lvl=lvl: kinfu._gn_level(depths[lvl], intrs[lvl], model, pose, intr, pose, pose,
+                                            ocfg.iterations[lvl], ocfg))
+           for lvl in range(ocfg.levels)},
+        "track_frame (whole)": lambda: kinfu.track_frame(vol, depth, pose, intr, ocfg),
+        "extract_surface_points": lambda: tsdf.extract_surface_points(vol, capacity=cfg.cloud_capacity),
+    }
+    out = {}
+    for name, fn in ops.items():
+        prof = device_profile(name, fn, top=4)
+        out[name] = {"cuda_ms": cuda_ms(fn, reps=5, warmup=1), "call_ms": call_ms(fn, reps=5, warmup=1),
+                     "device_busy_ms": prof["device_busy_ms"], "kernels": prof["kernels"]}
+    return out
+
+
+def syncs_per_frame(vol, depth, pose, intr, cfg) -> int:
+    """Host synchronisations that one frame of the fragment loop (track + fuse) makes."""
+    import warnings
+
+    from elasticreconstruction_tpu_torch.kernels import tsdf
+    from elasticreconstruction_tpu_torch.odometry import kinfu
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr = kinfu.track_frame(vol, depth, pose, intr, cfg.odometry)
+            tsdf.fuse(vol, depth, tr.pose, intr, max_weight=cfg.max_weight, depth_min=cfg.depth_min,
+                      depth_max=cfg.depth_max)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # Each warning names the Python line whose op synchronised.
+    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    by_line = {line: syncs.count(line) for line in sorted(set(syncs))}
+    print(json.dumps({"host_syncs_one_frame": len(syncs), "by_line": by_line}))
+    return len(syncs)
+
+
+def fragments_path(dev, tmp: str, intr, num_frames: int, extra_argv=(), seed: int = 0) -> dict:
+    """Render the dataset on ``dev``, run the ``fragments``, ``register`` and
+    ``posegraph`` verbs there and hold their files to ground truth. Returns the
+    record with its ``faults`` (empty when every check passed)."""
+    from elasticreconstruction_tpu_torch.bench_scene import placement_error, pose_error
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.pipeline import dataset, run
+    from elasticreconstruction_tpu_torch.synthetic import scenes
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    sync()
+    t0 = time.perf_counter()
+    ds = dataset.generate_synthetic(data, num_frames=num_frames, intr=intr, seed=seed, device=dev, **FRAG_ORBIT)
+    rec = {"frames": num_frames, "render_s": time.perf_counter() - t0}
+    gt = ds.gt_poses.astype(np.float64)
+    argv = ["--data", data, "--out", out, "--seed", str(seed), "--device", str(dev), *extra_argv]
+    K = run.config_from_args(run.build_parser().parse_args(["fragments", *argv])).frames_per_fragment
+    for verb in ("fragments", "register", "posegraph"):
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if run.main([verb, *argv]) != 0:
+            fail(f"the {verb} verb returned non-zero")
+        sync()
+        rec[verb + "_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            rec[verb + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    nf = max(1, (num_frames - 1) // K)
+    rec.update(fragments=nf, seconds_per_fragment=rec["fragments_s"] / nf,
+               frames_per_second=nf * (K + 1) / rec["fragments_s"])
+
+    faults = []
+    frag_dir = os.path.join(out, "fragments")
+    scene = scenes.livingroom_scene()
+    per_fragment, centroids = [], []
+    for f in range(nf):
+        local = io_logfmt.read_log(os.path.join(frag_dir, f"local_{f}.log")).matrices()
+        errs = [pose_error(local[k], np.linalg.inv(gt[f * K]) @ gt[f * K + k]) for k in range(K + 1)]
+        te, re = max(e[0] for e in errs), max(e[1] for e in errs)
+        with open(os.path.join(frag_dir, f"health_{f}.json")) as hf:
+            health = json.load(hf)
+        pts, nrm = io_logfmt.read_pcd(os.path.join(frag_dir, f"cloud_bin_{f}.pcd"))
+        centroids.append(pts.astype(np.float64).mean(0))
+        world = pts.astype(np.float64) @ gt[f * K][:3, :3].T + gt[f * K][:3, 3]
+        sdf = scene(torch.from_numpy(world.astype(np.float32)).to(dev)).abs().mean().item()
+        per_fragment.append({"fragment": f, "worst_local_pose_m_rad": (te, re), "min_fitness": health["min_fitness"],
+                             "min_obs_ratio": health["min_obs_ratio"], "suspect": health["suspect"],
+                             "points": len(pts), "mean_abs_sdf_m": sdf})
+        if not (te < GT_TRANSLATION_M and re < GT_ROTATION_RAD):
+            faults.append(f"fragment {f}: a local pose is off ground truth by {te:.4f} m / {re:.4f} rad")
+        if not health["min_fitness"] > FRAG_MIN_FITNESS:
+            faults.append(f"fragment {f}: min_fitness {health['min_fitness']:.3f}")
+        if not len(pts) > FRAG_MIN_POINTS:
+            faults.append(f"fragment {f}: {len(pts)} cloud points")
+        if not (sdf < FRAG_SURFACE_M and np.isfinite(pts).all() and np.isfinite(nrm).all()):
+            faults.append(f"fragment {f}: cloud off the surface (mean |SDF| {sdf:.4f} m) or not finite")
+    odo = io_logfmt.read_log(os.path.join(out, "registration", "odometry.log"))
+    if [(e.i, e.j) for e in odo.entries] != [(f, f + 1) for f in range(nf - 1)]:
+        faults.append("odometry.log does not hold every adjacent edge")
+    edges = []
+    for e in odo.entries:
+        te, re = placement_error(e.transform, np.linalg.inv(gt[e.i * K]) @ gt[e.j * K], centroids[e.j])
+        edges.append((e.i, e.j, te, re))
+        if not (te < GT_TRANSLATION_M and re < GT_ROTATION_RAD):
+            faults.append(f"odometry edge ({e.i}, {e.j}) off ground truth by {te:.4f} m / {re:.4f} rad")
+    pose = io_logfmt.read_log(os.path.join(out, "posegraph", "pose.log")).matrices()
+    if pose.shape != (nf, 4, 4) or not np.isfinite(pose).all():
+        faults.append(f"pose.log holds {pose.shape} poses or non-finite values")
+    rec.update(per_fragment=per_fragment, odometry_edges_m_rad=edges, faults=faults, dataset=ds)
+    return rec
+
+
+def phase_fragments(seed: int = 0) -> dict:
+    """The fragments path at full width on the card, then the per-frame costs of its ops."""
+    from elasticreconstruction_tpu_torch.core import se3
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
+    from elasticreconstruction_tpu_torch.kernels import tsdf
+    from elasticreconstruction_tpu_torch.odometry import build_fragment
+    from elasticreconstruction_tpu_torch.odometry.fragments import _volume_origin
+    from elasticreconstruction_tpu_torch.pipeline import run
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        rec = fragments_path(dev, tmp, PRIMESENSE, FRAG_FRAMES, seed=seed)
+        rec["launches"] = launch_counts()
+        print(json.dumps({"fragments_path_launches_by_shape": launches_by_shape()}))
+        require_launched("fragments", rec["launches"], ["nearest_batch"])
+        phase_done("fragments path: render, fragments, register and posegraph verbs")
+
+        # Per-frame costs at full width: frame 1 against the model of frame 0,
+        # at its ground-truth pose.
+        ds = rec.pop("dataset")
+        cfg = run.config_from_args(run.build_parser().parse_args(["fragments"])).fragment
+        frames = torch.from_numpy(ds.depth_chunk(0, 11)).to(dev)
+        vol = tsdf.make_volume(cfg.volume_shape, cfg.voxel_size, _volume_origin(cfg), device=dev)
+        vol = tsdf.fuse(vol, frames[0], se3.identity(device=dev), ds.intrinsics, max_weight=cfg.max_weight,
+                        depth_min=cfg.depth_min, depth_max=cfg.depth_max)
+        pose1 = torch.from_numpy(np.linalg.inv(ds.gt_poses[0]) @ ds.gt_poses[1]).float().to(dev)
+        rec["per_frame_ms"] = frame_op_times(vol, frames[1], pose1, ds.intrinsics, cfg)
+        rec["host_syncs_per_frame"] = syncs_per_frame(vol, frames[1], pose1, ds.intrinsics, cfg)
+        prof = device_profile(f"build_fragment ({len(frames)} frames)",
+                              lambda: build_fragment(frames, ds.intrinsics, cfg), top=8, warm=False)
+        rec["build_fragment_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share", "kernels")}
+    faults = rec.pop("faults")
+    print(json.dumps({"fragments_path": rec}))
+    if faults:
+        fail("fragments path: " + "; ".join(faults))
+    return rec
+
+
 KERNELS = {
     "nearest_batch": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/nn.cu",
@@ -911,6 +1109,8 @@ def main() -> int:
     phase_done("calibration path")
     by_path["stages"] = phase_stages()["launches"]
     phase_done("stage path")
+    by_path["fragments"] = phase_fragments()["launches"]
+    phase_done("fragments path")
 
     kernels = []
     for name, meta in KERNELS.items():

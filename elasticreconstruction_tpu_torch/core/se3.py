@@ -147,8 +147,16 @@ def make(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     rot = rot.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([rot, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot.dtype, device=rot.device)
-    return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
+    # Filled on the device: a tensor built from a Python list would be copied
+    # from the host, and that copy synchronises with the card on every call.
+    bottom = rot.new_zeros(batch + (1, 4))
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def identity(batch_shape=(), dtype=torch.float32, *, device) -> torch.Tensor:
+    """``(*batch_shape, 4, 4)`` identity poses."""
+    return torch.eye(4, dtype=dtype, device=device).expand(tuple(batch_shape) + (4, 4)).contiguous()
 
 
 def inverse(pose: torch.Tensor) -> torch.Tensor:
@@ -166,6 +174,11 @@ def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def apply(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Transform points ``(..., N, 3)`` by poses ``(..., 4, 4)``."""
     return points @ pose[..., :3, :3].transpose(-1, -2) + pose[..., None, :3, 3]
+
+
+def rotate(pose: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
+    """Rotate direction vectors ``(..., N, 3)`` (no translation)."""
+    return vectors @ pose[..., :3, :3].transpose(-1, -2)
 
 
 def orthonormalize(pose: torch.Tensor) -> torch.Tensor:

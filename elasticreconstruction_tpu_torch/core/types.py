@@ -34,6 +34,33 @@ def f32_square(x: float) -> float:
     return float(np.float32(x) * np.float32(x))
 
 
+def f32_reciprocal(x: float) -> float:
+    """``1 / x`` rounded as one float32 division of float32 ``x``.
+
+    XLA rewrites the reference's division by a constant (a static intrinsic,
+    a voxel size or truncation fixed inside a jitted function) into a multiply
+    by this reciprocal; a true division can round the other way and move a
+    pixel or voxel choice. PyTorch's CUDA division by a Python scalar
+    multiplies by it too, its CPU division does not, so the port multiplies
+    explicitly wherever the reference divides by a constant.
+    """
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` for float32 ``a`` rounded once, as a fused multiply-add.
+
+    XLA on the CPU contracts a multiply feeding an add inside one fused loop
+    into an FMA, so the reference computes voxel centers (``o + i * h``),
+    projections (``x / z * fx + cx``) and ray points (``o + d * z``) that way;
+    where the result picks a pixel or a voxel, the port does too. The product
+    of two float32 values is exact in float64 and the sum is rounded twice
+    (to float64, then to float32), which equals the single rounding except
+    when the float64 sum lands on a float32 midpoint.
+    """
+    return (a.double() * b + c).float()
+
+
 class PointCloud(NamedTuple):
     """Fixed-capacity point cloud.
 

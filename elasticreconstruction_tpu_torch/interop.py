@@ -1,7 +1,7 @@
 """Carry pipeline state between the JAX package and this port as numpy arrays.
 
 The pipeline has no weights; its state is point clouds, prepped fragments and
-registration results. These converters take the JAX package's containers (or
+registration results, and the TSDF volumes of fragment odometry. These converters take the JAX package's containers (or
 any object with the same field names) field by field through ``np.asarray``,
 so this module never imports the JAX package, and hand back the port's
 containers on a given device. ``RegistrationConfig`` and ``PGOConfig`` keep
@@ -17,8 +17,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .core.camera import Intrinsics
 from .core.types import PointCloud, resolve_device
 from .elastic.slac import SlacConfig, SlacMode
+from .kernels.tsdf import TSDFVolume
 from .odometry.fragments import FragmentConfig
 from .odometry.kinfu import OdometryConfig
 from .pipeline.config import PipelineConfig
@@ -81,3 +83,23 @@ def pipeline_config_from(cfg) -> PipelineConfig:
         slac=SlacConfig(**slac),
     )
     return PipelineConfig(**fields)
+
+
+def intrinsics_from(intr) -> Intrinsics:
+    """Camera intrinsics with the reference's field names -> the port's ``Intrinsics``."""
+    return Intrinsics(**intr._asdict())
+
+
+def volume_from_numpy(tsdf, weight, origin, voxel_size, truncation, device="cuda") -> TSDFVolume:
+    """A TSDF volume's arrays and scalars -> the port's ``TSDFVolume`` on ``device``.
+
+    The scalars are kept as float32 values, as the reference stores them.
+    """
+    dev = resolve_device(device)
+    return TSDFVolume(
+        tsdf=_tensor(tsdf, dev, torch.float32),
+        weight=_tensor(weight, dev, torch.float32),
+        origin=tuple(float(np.float32(o)) for o in np.asarray(origin).reshape(3)),
+        voxel_size=float(np.float32(voxel_size)),
+        truncation=float(np.float32(truncation)),
+    )

@@ -1,12 +1,12 @@
 """Fragment construction: frame-to-model TSDF odometry.
 
-Only the configuration records are here so far; the tracking and
-fragment-building functions are still to port (they need ``kernels/tsdf.py``
-and ``kernels/raycast.py``).
+Counterpart of ``elasticreconstruction_tpu/odometry``: raycast model maps,
+multi-scale projective ICP and TSDF fusion per frame, all on the device,
+with no host round trip inside a fragment in the port's own code.
 """
 
 from . import fragments, kinfu
-from .fragments import FragmentConfig
-from .kinfu import OdometryConfig
+from .fragments import FragmentConfig, build_fragment
+from .kinfu import OdometryConfig, track_frame
 
-__all__ = ["fragments", "kinfu", "FragmentConfig", "OdometryConfig"]
+__all__ = ["fragments", "kinfu", "FragmentConfig", "build_fragment", "OdometryConfig", "track_frame"]

@@ -6,10 +6,10 @@ previous stage's outputs. This package keeps that property (same
 .log/.info/.pcd artifact layout, same resumability).
 
 CLI: ``python -m elasticreconstruction_tpu_torch.pipeline.run <stage> ...``
-Stages ported so far: register | posegraph.
+Stages ported so far: synth | fragments | register | posegraph.
 """
 
-from . import config, stages
+from . import config, dataset, stages
 from .config import PipelineConfig
 
-__all__ = ["config", "stages", "PipelineConfig"]
+__all__ = ["config", "dataset", "stages", "PipelineConfig"]

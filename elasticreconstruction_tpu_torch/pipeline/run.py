@@ -1,9 +1,11 @@
 """Pipeline CLI: ``python -m elasticreconstruction_tpu_torch.pipeline.run <stage>``.
 
-Counterpart of ``elasticreconstruction_tpu/pipeline/run.py`` for the stages
-the port has: ``register`` and ``posegraph``. Every stage resumes from the
-previous stage's file artifacts under ``--out``. Stages run on ``--device``
-(default ``cuda``, which raises if no card is present).
+Counterpart of ``elasticreconstruction_tpu/pipeline/run.py`` for the verbs
+the port has: ``synth``, ``fragments``, ``register`` and ``posegraph``. Every
+stage resumes from the previous stage's file artifacts under ``--out``
+(``synth`` writes the dataset under ``--data``). Stages run on ``--device``
+(default ``cuda``, which raises if no card is present). The reference's
+``--profile`` (a ``jax.profiler`` trace) is not ported.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from ..odometry.fragments import FragmentConfig
 from ..odometry.kinfu import OdometryConfig
 from ..registration.pair import RegistrationConfig
 from .config import PipelineConfig
-from .stages import run_posegraph, run_registration
+from .dataset import Dataset, generate_synthetic
+from .stages import run_fragments, run_posegraph, run_registration
 
-STAGES = ("register", "posegraph")
+STAGES = ("synth", "fragments", "register", "posegraph")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -27,6 +30,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data", default="data", help="dataset directory")
     p.add_argument("--out", default="out", help="artifact directory")
     p.add_argument("--frames-per-fragment", type=int, default=50)
+    p.add_argument("--slac-mode", default="slac", choices=["rigid", "slac", "nonrigid", "none"])
+    p.add_argument("--scene-voxel", type=float, default=None, help="default 0.015 (full) / 0.03 (fast)")
+    p.add_argument("--fragment-voxel", type=float, default=None, help="default 0.012 (full) / 0.024 (fast)")
+    p.add_argument("--fragment-volume", type=int, default=None,
+                   help="fragment TSDF resolution per axis; default 256 (full) / 128 (fast)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--preset",
@@ -35,6 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="fast = reduced capacities/hypotheses for quick looks & CI",
     )
     p.add_argument("--odometry-only", action="store_true", help="register: skip loop candidates")
+    # synth options
+    p.add_argument("--num-frames", type=int, default=200)
+    p.add_argument("--depth-noise", type=float, default=0.0)
+    p.add_argument("--size", default="160x120", help="synthetic image WxH")
     p.add_argument("--device", default="cuda", help="torch device the stage runs on")
     return p
 
@@ -43,10 +55,13 @@ def config_from_args(args) -> PipelineConfig:
     fast = args.preset == "fast"
     # The whole record the reference's CLI builds for the same flags, fields
     # of unported stages included, so both packages read one configuration.
+    # Volumetric resolutions scale with the preset unless set: "fast" halves
+    # the fragment grid and doubles both voxel sizes (same metric extent).
+    fragment_volume = args.fragment_volume or (128 if fast else 256)
     frag = FragmentConfig(
         frames_per_fragment=args.frames_per_fragment,
-        volume_shape=(128 if fast else 256,) * 3,
-        voxel_size=0.024 if fast else 0.012,
+        volume_shape=(fragment_volume,) * 3,
+        voxel_size=args.fragment_voxel or (0.024 if fast else 0.012),
         cloud_capacity=(1 << 14) if fast else (1 << 17),
         odometry=OdometryConfig(levels=2, raycast_steps=128) if fast else OdometryConfig(),
     )
@@ -62,16 +77,33 @@ def config_from_args(args) -> PipelineConfig:
         fragment=frag,
         registration=reg,
         slac=SlacConfig(resolution=6, cg_iterations=24, outer_iterations=3) if fast else SlacConfig(),
+        slac_mode=args.slac_mode,
         corres_capacity_per_edge=2048 if fast else 4096,
-        scene_voxel_size=0.03 if fast else 0.015,
+        scene_voxel_size=args.scene_voxel or (0.03 if fast else 0.015),
         seed=args.seed,
     )
 
 
+def synth_intrinsics(size: str):
+    """The ``synth`` verb's camera for a ``WxH`` image: ~43 deg horizontal field of view."""
+    from ..core import camera as cam
+
+    w, h = (int(v) for v in size.split("x"))
+    f = 1.25 * w
+    return cam.Intrinsics(fx=f, fy=f, cx=w / 2 - 0.5, cy=h / 2 - 0.5, width=w, height=h)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.stage == "synth":
+        generate_synthetic(args.data, num_frames=args.num_frames, intr=synth_intrinsics(args.size),
+                           depth_noise=args.depth_noise, seed=args.seed, device=args.device)
+        print(f"synthetic dataset written to {args.data}")
+        return 0
     cfg = config_from_args(args)
-    if args.stage == "register":
+    if args.stage == "fragments":
+        run_fragments(Dataset(args.data), cfg, device=args.device)
+    elif args.stage == "register":
         run_registration(cfg, all_pairs=not args.odometry_only, device=args.device)
     elif args.stage == "posegraph":
         run_posegraph(cfg, device=args.device)

@@ -1,11 +1,12 @@
 """Stage functions: the reference executables as resumable functions.
 
 Counterpart of ``elasticreconstruction_tpu/pipeline/stages.py``; the
-``register`` and ``posegraph`` stages are here, the others are still to port.
-Artifact layout mirrors the reference contracts so every stage is re-runnable
-from files:
+``fragments``, ``register`` and ``posegraph`` stages are here, the others are
+still to port. Artifact layout mirrors the reference contracts so every stage
+is re-runnable from files:
 
     out/fragments/cloud_bin_<f>.pcd      fragment clouds (local frame)
+    out/fragments/local_<f>.log          per-frame camera-to-fragment poses
     out/fragments/fragments.log          chained fragment base poses
     out/fragments/health_<f>.json        per-fragment tracking health
     out/registration/odometry.log/.info  consecutive-fragment edges
@@ -30,6 +31,7 @@ import torch
 
 from ..core import io_logfmt, se3
 from ..core.types import PointCloud, resolve_device
+from ..odometry import build_fragment
 from ..posegraph import EdgeList, optimize_pose_graph
 from ..registration import (
     edge_information_batch,
@@ -39,11 +41,74 @@ from ..registration import (
 )
 from ..registration.retrieval import fragment_signatures, mutual_topk_pairs, signature_distances
 from .config import PipelineConfig
+from .dataset import Dataset
 
 
 def _log(stage: str, msg: str, **kv) -> None:
     rec = {"stage": stage, "msg": msg, "t": round(time.time(), 3), **kv}
     print(json.dumps(rec), flush=True)
+
+
+# ---------------------------------------------------------------- fragments
+
+
+def run_fragments(ds: Dataset, cfg: PipelineConfig, device="cuda") -> None:
+    """Fragment odometry over the dataset: ``cloud_bin_<f>.pcd``, ``local_<f>.log``,
+    ``health_<f>.json`` per fragment of ``frames_per_fragment`` + 1 frames (the
+    last frame overlaps the next fragment), then ``fragments.log``."""
+    dev = resolve_device(device)
+    out = cfg.p_fragments()
+    out.mkdir(parents=True, exist_ok=True)
+    K = cfg.frames_per_fragment
+    nf = max(1, (len(ds) - 1) // K)
+    intr = ds.intrinsics
+    base = np.eye(4, dtype=np.float32)
+    bases = []
+    t0 = time.time()
+    # The trusted body-twist velocity carries across the fragment reset:
+    # camera motion is continuous.
+    velocity = torch.zeros(6, dtype=torch.float32, device=dev)
+    ocfg = cfg.fragment.odometry
+    for f in range(nf):
+        frames = ds.depth_chunk(f * K, K + 1)
+        if frames.shape[0] < K + 1:  # pad final fragment (zero depth = no-op)
+            pad = np.zeros((K + 1 - frames.shape[0],) + frames.shape[1:], np.float32)
+            frames = np.concatenate([frames, pad])
+        res = build_fragment(torch.from_numpy(frames).to(dev), intr, cfg.fragment, init_velocity=velocity)
+        velocity = res.final_velocity
+        cloud = res.cloud
+        m = cloud.mask.cpu().numpy()
+        io_logfmt.write_pcd(
+            out / f"cloud_bin_{f}.pcd",
+            cloud.points.cpu().numpy()[m],
+            cloud.normals.cpu().numpy()[m],
+        )
+        local = res.local_poses.cpu().numpy()
+        io_logfmt.write_log(out / f"local_{f}.log", io_logfmt.Trajectory.from_matrices(local))
+        bases.append(base.copy())
+        base = base @ local[K]  # overlap frame chains the next fragment
+        # Tracking health: a fragment is suspect when any frame tracked
+        # against effectively unobservable geometry or with poor support.
+        fit = res.fitness.cpu().numpy()[1:]
+        rmse = res.rmse.cpu().numpy()[1:]
+        obs = res.obs_ratio.cpu().numpy()[1:]
+        health = {
+            "fragment": f,
+            "min_fitness": float(fit.min()) if K > 0 else 1.0,
+            "max_rmse": float(rmse.max()) if K > 0 else 0.0,
+            "min_obs_ratio": float(obs.min()) if K > 0 else 1.0,
+            "frames_unhealthy": int(
+                np.sum((obs < ocfg.healthy_obs_ratio) | (fit < ocfg.healthy_fitness))
+            ),
+            "suspect": bool(
+                np.any(obs < ocfg.healthy_obs_ratio) or np.any(fit < ocfg.healthy_fitness)
+            ),
+        }
+        with open(out / f"health_{f}.json", "w") as hf:
+            json.dump(health, hf, indent=2)
+        _log("fragments", "fragment built", points=int(m.sum()), **health)
+    io_logfmt.write_log(out / "fragments.log", io_logfmt.Trajectory.from_matrices(np.stack(bases)))
+    _log("fragments", "done", num_fragments=nf, seconds=round(time.time() - t0, 2))
 
 
 def load_fragment_health(cfg: PipelineConfig, nf: int) -> list[dict]:

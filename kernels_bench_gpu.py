@@ -40,9 +40,9 @@ DATA_SHEET = {
 # f32 lane-instructions per second: one per FMA of the f32 figure.
 LANE_GIPS = DATA_SHEET["fp32_tflops"] * 1e3 / 2
 MAX_SHARE = 1.05
-KERNEL_SECTIONS = ("nn", "icp", "fpfh", "voxel")
+KERNEL_SECTIONS = ("nn", "icp", "fuse", "raycast", "fpfh", "voxel")
 # Sections of kernels_bench.py whose kernels the port does not have yet.
-UNPORTED_SECTIONS = ("fuse", "raycast")
+UNPORTED_SECTIONS = ()
 
 CALIB_SHAPE = (32768, 512)
 CALIB_ITERS = 64
@@ -247,8 +247,11 @@ def bench_kernels(peaks: dict, want=None, device="cuda") -> list[dict]:
 
     ``want``: a set of section names out of ``KERNEL_SECTIONS``, or None for all.
     """
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
     from elasticreconstruction_tpu_torch.core.types import PointCloud
     from elasticreconstruction_tpu_torch.kernels import fpfh as _fpfh
+    from elasticreconstruction_tpu_torch.kernels import raycast as _raycast
+    from elasticreconstruction_tpu_torch.kernels import tsdf as _tsdf
     from elasticreconstruction_tpu_torch.kernels import voxel_grid as _voxel
     from elasticreconstruction_tpu_torch.kernels.cuda import icp_step as _cicp
     from elasticreconstruction_tpu_torch.kernels.cuda import nn as _cnn
@@ -257,10 +260,7 @@ def bench_kernels(peaks: dict, want=None, device="cuda") -> list[dict]:
     want = set(KERNEL_SECTIONS) if want is None else set(want)
     unknown = want - set(KERNEL_SECTIONS)
     if unknown:
-        raise ValueError(
-            f"bench_kernels: no such section(s) {sorted(unknown)}; the port has {KERNEL_SECTIONS} "
-            f"({UNPORTED_SECTIONS} wait for kernels/tsdf.py and kernels/raycast.py)"
-        )
+        raise ValueError(f"bench_kernels: no such section(s) {sorted(unknown)}; the port has {KERNEL_SECTIONS}")
     dev = _require_card(device)
     rng = np.random.default_rng(0)
     entries = []
@@ -331,6 +331,79 @@ def bench_kernels(peaks: dict, want=None, device="cuda") -> list[dict]:
             "model_note": "per GN iteration; the J/H/g einsums and the solve are O(B*NQ), negligible",
         }, peaks))
 
+    # A 640 x 480 depth map about 2 m away, and the identity pose (kernels_bench.py's inputs).
+    intr = PRIMESENSE
+    depth = on_card((2.0 + 0.5 * rng.standard_normal((480, 640))).clip(0.5, 5.0))
+    pose = torch.eye(4, device=dev)
+
+    if "fuse" in want:
+        # The volume is the carry: each call fuses into the previous call's volume.
+        for name, vshape, vs in (("fragment", (256, 256, 256), 0.012), ("scene", (448, 256, 448), 0.015)):
+            nvox = int(np.prod(vshape))
+            ns = 640 * 480 * 9  # pixels x band samples
+            for kernel, fn, model in (
+                ("fuse", _tsdf.fuse, {
+                    "hbm_bytes": nvox * 16,  # read + write tsdf and weight
+                    "fp32_ops": nvox * 25,  # project + update epilogue (estimate)
+                    "gathers_l2": nvox,  # depth-map lookup (1.2 MB table)
+                }),
+                ("fuse_scatter", _tsdf.fuse_scatter, {
+                    "hbm_bytes": nvox * 24,  # dense merge read-modify-write
+                    "fp32_ops": ns * 40,  # project center + observation epilogue (estimate)
+                    "gathers_l2": ns,  # depth lookup per sample
+                    "scatters_hbm": ns,  # one random read-modify-write per sample
+                }),
+            ):
+                _progress(f"kernel: tsdf.{kernel}[{name}]")
+                vol = [_tsdf.make_volume(vshape, vs, (-1.5, -1.5, 0.3), device=dev)]
+
+                def step(fn=fn, vol=vol):
+                    vol[0] = fn(vol[0], depth, pose, intr)
+
+                dt = event_ms(step, reps=8, warmup=1)
+                entries.append(_sol({
+                    "kernel": f"tsdf.{kernel}[{name}]",
+                    "shape": f"{vshape} vox, 640x480 depth" + (" x 9 samples" if kernel == "fuse_scatter" else ""),
+                    "time_ms": round(dt, 4),
+                    "gvoxels_per_s": round(nvox / (dt * 1e-3) / 1e9, 2),
+                    "model": model,
+                    "model_note": "plain torch ops (the reference's fuse is plain jnp too); op counts are estimates",
+                }, peaks))
+                del vol
+
+    if "raycast" in want:
+        # The march reads one nearest voxel per step; the refinement adds 5
+        # trilinear samples (40 gathers) and the normal 6 (48). Time must scale
+        # with the step count: a 192/96-step ratio far from the model's marks
+        # both entries suspect.
+        vol = _tsdf.fuse(_tsdf.make_volume((256, 256, 256), 0.012, (-1.5, -1.5, 0.3), device=dev),
+                         depth, pose, intr)
+        nray = intr.width * intr.height
+        ray_entries = {}
+        for steps in (96, 192):
+            _progress(f"kernel: raycast[{steps}steps]")
+            dt = event_ms(lambda steps=steps: _raycast.raycast(vol, pose, intr, num_steps=steps), reps=4, warmup=1)
+            ray_entries[steps] = _sol({
+                "kernel": f"raycast.raycast[{steps}steps]",
+                "shape": f"640x480 rays x {steps} steps, 256^3 vol",
+                "time_ms": round(dt, 4),
+                "mrays_per_s": round(nray / (dt * 1e-3) / 1e6, 2),
+                "model": {
+                    "fp32_ops": nray * (steps * 12 + 88 * 8),  # march step + refine/normal epilogues (estimate)
+                    "gathers_hbm": nray * (steps + 88),  # 1 per step + 40 refine + 48 normal (64 MB volume)
+                },
+                "model_note": "gather-dominated; 1 random 32-bit load per march step",
+            }, peaks)
+        ratio = ray_entries[192]["time_ms"] / max(ray_entries[96]["time_ms"], 1e-9)
+        model_ratio = (192 + 88) / (96 + 88)
+        if not (0.6 * model_ratio <= ratio <= 1.6 * model_ratio):
+            for e in ray_entries.values():
+                e["suspect"] = True
+                e["suspect_note"] = (f"192/96-step time ratio {ratio:.2f} vs model {model_ratio:.2f}: "
+                                     "march not executing per step; timing invalid")
+        entries.extend(ray_entries.values())
+        del vol
+
     if "fpfh" in want:
         _progress("kernel: fpfh")
         cloud = PointCloud.from_points(rng.uniform(-1.5, 1.5, (4096, 3)).astype(np.float32),
@@ -372,8 +445,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--section", default="all",
                     choices=["all", "calibrate", "kernels", *KERNEL_SECTIONS],
-                    help="calibrate only, or calibrate and score all kernels or one section "
-                         f"({', '.join(UNPORTED_SECTIONS)}: not ported yet)")
+                    help="calibrate only, or calibrate and score all kernels or one section")
     ap.add_argument("--out", default=None, metavar="PATH", help="also write the JSON here")
     args = ap.parse_args(argv)
 

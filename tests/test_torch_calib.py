@@ -189,11 +189,13 @@ def test_lane_instruction_counts_follow_the_source():
 
 
 def test_bench_kernels_refuses_unported_sections():
-    for section in kernels_bench_gpu.UNPORTED_SECTIONS:
-        with pytest.raises(ValueError, match="no such section"):
-            kernels_bench_gpu.bench_kernels({}, {section})
+    """Every section of kernels_bench.py is ported; an unknown one is refused."""
+    assert kernels_bench_gpu.UNPORTED_SECTIONS == ()
+    assert {"nn", "icp", "fuse", "raycast", "fpfh", "voxel"} == set(kernels_bench_gpu.KERNEL_SECTIONS)
+    with pytest.raises(ValueError, match="no such section"):
+        kernels_bench_gpu.bench_kernels({}, {"mesh"})
     with pytest.raises(SystemExit):
-        kernels_bench_gpu.main(["--section", "raycast"])
+        kernels_bench_gpu.main(["--section", "mesh"])
 
 
 # ---- build flags -------------------------------------------------------------

@@ -41,6 +41,7 @@ def _cases():
         "apply": (lambda m, T, p: m.apply(T, p), lambda: (_poses(rng), pts)),
         "hat": (lambda m, v: m.hat(v), lambda: (pts[0],)),
         "vee": (lambda m, v: m.vee(m.hat(v)), lambda: (pts[0],)),
+        "rotate": (lambda m, T, p: m.rotate(T, p), lambda: (_poses(rng), pts)),
     }
 
 
@@ -51,6 +52,11 @@ def test_se3_matches_jax(op):
     want = np.asarray(fn(j_se3, *(jnp.asarray(a) for a in args)))
     got = fn(t_se3, *(torch.from_numpy(np.array(a)) for a in args)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_identity_matches_jax():
+    np.testing.assert_array_equal(t_se3.identity((2, 3), device="cpu").numpy(), np.asarray(j_se3.identity((2, 3))))
+    assert t_se3.identity(device="cpu").shape == (4, 4)
 
 
 def test_kabsch_matches_jax():

@@ -39,6 +39,12 @@ def test_import_pulls_in_no_jax():
         "import elasticreconstruction_tpu_torch.registration.retrieval, elasticreconstruction_tpu_torch.posegraph\n"
         "import elasticreconstruction_tpu_torch.pipeline.run, elasticreconstruction_tpu_torch.odometry\n"
         "import elasticreconstruction_tpu_torch.elastic, elasticreconstruction_tpu_torch.kernels.cuda.calib\n"
+        "import elasticreconstruction_tpu_torch.core.camera, elasticreconstruction_tpu_torch.core.stream\n"
+        "import elasticreconstruction_tpu_torch.kernels.tsdf, elasticreconstruction_tpu_torch.kernels.raycast\n"
+        "import elasticreconstruction_tpu_torch.odometry.kinfu, elasticreconstruction_tpu_torch.odometry.fragments\n"
+        "import elasticreconstruction_tpu_torch.synthetic.sdf, elasticreconstruction_tpu_torch.synthetic.scenes\n"
+        "import elasticreconstruction_tpu_torch.synthetic.render, elasticreconstruction_tpu_torch.native.depth_png\n"
+        "import elasticreconstruction_tpu_torch.pipeline.dataset, elasticreconstruction_tpu_torch.pipeline.stages\n"
         "import kernels_bench_gpu, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m == 'elasticreconstruction_tpu' or m.startswith('elasticreconstruction_tpu.')\n"
@@ -100,14 +106,28 @@ def test_stage_entry_points_default_to_the_card(tmp_path):
     from elasticreconstruction_tpu_torch.pipeline import PipelineConfig, run, stages
     from elasticreconstruction_tpu_torch.posegraph import EdgeList
 
+    from elasticreconstruction_tpu_torch.kernels import tsdf
+    from elasticreconstruction_tpu_torch.pipeline import dataset
+
     write_fragments_dir(tmp_path, 2, n=200)
     cfg = PipelineConfig(out_dir=str(tmp_path))
+    (tmp_path / "data" / "depth").mkdir(parents=True)
+    dataset.write_intrinsics(tmp_path / "data" / "intrinsics.json", run.synth_intrinsics("8x6"))
+    for k in range(2):
+        dataset.write_depth_png(tmp_path / "data" / "depth" / f"{k:06d}.png", np.ones((6, 8), np.float32))
     edge = (np.zeros(1, int), np.ones(1, int), np.eye(4)[None], np.eye(6)[None], np.ones(1, bool))
     for call in (
         lambda: stages.run_registration(cfg),
         lambda: stages.run_posegraph(cfg),
         lambda: run.main(["register", "--out", str(tmp_path)]),
         lambda: run.main(["posegraph", "--out", str(tmp_path)]),
+        lambda: stages.run_fragments(dataset.Dataset(tmp_path / "data"), cfg),
+        lambda: run.main(["fragments", "--data", str(tmp_path / "data"), "--out", str(tmp_path)]),
+        lambda: run.main(["synth", "--data", str(tmp_path / "synth")]),
+        lambda: dataset.generate_synthetic(tmp_path / "synth", num_frames=2),
+        lambda: tsdf.make_volume((4, 4, 4), 0.1, (0, 0, 0)),
+        lambda: interop.volume_from_numpy(np.zeros((2, 2, 2)), np.zeros((2, 2, 2)), (0, 0, 0), 0.1, 0.4),
+        lambda: kernels_bench_gpu.bench_kernels({}, {"fuse"}),
         lambda: EdgeList.build(*edge),
         lambda: interop.edges_from_numpy(EdgeList.build(*edge, device="cpu")),
         lambda: kernels_bench_gpu.calibrate(),
@@ -119,6 +139,7 @@ def test_stage_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA card"):
         kernels_bench_gpu.calibrate("cpu")
     assert not (tmp_path / "registration" / "odometry.log").exists()
+    assert not (tmp_path / "fragments" / "local_0.log").exists() and not (tmp_path / "synth").exists()
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():

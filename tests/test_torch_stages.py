@@ -213,14 +213,23 @@ def test_radius_gate_filters_pairs(runs, tmp_path):
     assert stats["pairs"] == stats["suspect_odometry_edges"] == 0
 
 
-@pytest.mark.parametrize("preset", ["full", "fast"])
-def test_cli_config_matches_jax(preset):
+@pytest.mark.parametrize("preset,flags", [
+    ("full", []), ("fast", []),
+    ("full", ["--fragment-volume", "192", "--fragment-voxel", "0.02", "--scene-voxel", "0.01",
+              "--slac-mode", "none"]),
+    ("fast", ["--fragment-volume", "64", "--slac-mode", "rigid", "--num-frames", "30", "--depth-noise", "0.01",
+              "--size", "320x240"]),
+])
+def test_cli_config_matches_jax(preset, flags):
     argv = ["register", "--out", "o", "--data", "d", "--preset", preset, "--seed", "3",
-            "--frames-per-fragment", "40"]
+            "--frames-per-fragment", "40", *flags]
     t_args = t_run.build_parser().parse_args(argv + ["--device", "cpu"])
     want = interop.pipeline_config_from(j_run.config_from_args(j_run.build_parser().parse_args(argv)))
     assert t_run.config_from_args(t_args) == want
     assert t_args.device == "cpu" and t_run.build_parser().parse_args(argv).device == "cuda"
+    j_args = j_run.build_parser().parse_args(argv)
+    for name in ("num_frames", "depth_noise", "size", "slac_mode"):
+        assert getattr(t_args, name) == getattr(j_args, name)
 
 
 def test_pipeline_config_defaults_match_jax():
