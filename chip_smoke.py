@@ -16,7 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    fewer refs than one chunk, one batch, refs all masked (which must give
    (3e38, 0)) and duplicated refs (the first index must win). Every call is
    made twice and must give the same bits. Their compiled main loop's opcode
-   counts per pair are printed. The compare+select and threshold-sum chains must
+   counts per pair are printed. ``nearest_batch`` is also held at the
+   correspondence harvest's shape, (1, 131072, 131072) with 60 000 valid refs:
+   on the first 8192 queries against every ref, indices equal and d2 within
+   1e-5; 64 or more ref splits and a scratch cache grown to them. The compare+select and threshold-sum chains must
    equal their plain versions bit for bit; the FMA chain within 2e-5 relative
    (one rounding per step against the plain version's two, 64 steps).
 4. Registration path at full width: 6 fragments of 20 000 points (the registration
@@ -55,7 +58,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    Gauss-Newton levels of ``track_frame`` and surface extraction (device time
    by ``cuda_ms``, wall time, profiled device-busy time), host synchronisations
    per frame, peak memory and the device profile of one ``build_fragment``.
-8. One JSON line of per-kernel numbers, then the last line
+8. Scene path, on the fragments path's directory: the ``optimize
+   --slac-mode none``, ``integrate`` and ``evaluate`` verbs, each timed with
+   its peak memory. ``trajectory.log`` holds every frame of the 3 fragments,
+   ``ate.json``'s ATE is under 2 cm, ``mesh.ply`` parses with more than
+   10 000 faces whose vertices lie on the scene (aligned at frame 0: mean
+   |SDF| under 1 cm, 95% within 2 cm), ``registration_pr.json`` is written,
+   and ``nearest_batch`` was launched by the harvest. Then ``run_integrate``
+   again on 2 x 1 x 2 blocks must give the one-block mesh (faces within 0.1%,
+   99% of the vertices within 0.1 mm), and the per-frame fuse and
+   ``extract_mesh`` are profiled at the scene's tile. One JSON line
+   ``{"scene_path": ...}`` carries the numbers.
+9. The ``all`` verb on a fresh directory: 21 frames of the same orbit at the
+   ``fast`` preset, every artifact written, ATE under 3 cm.
+10. One JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
@@ -124,6 +140,23 @@ FRAG_SURFACE_M = 0.03  # mean |SDF| at the cloud points (tests/test_odometry.py)
 # steps whose multiplier 1 + k ulp rounds the same way every step: up to
 # ~3 * 64 * 2^-24 = 1.1e-5.
 FMA_CHAIN_RTOL = 2e-5
+# Scene path on the fragments path's 3 fragments: the local poses are within
+# 6.1 mm of ground truth (PERF.md, PR 4) and the builders' full-length config
+# 3 ATE is 18.2 mm (ROADMAP.md); the mesh is held as the clouds are, tighter.
+SCENE_ATE_M = 0.02
+SCENE_MIN_FACES = 10000
+SCENE_MESH_MEAN_M = 0.01
+SCENE_MESH_SHARE = 0.95  # of the vertices within 2 cm of the surface
+BLOCKS_FACES_RTOL = 1e-3
+BLOCKS_VERTEX_M = 1e-4
+BLOCKS_SHARED = 0.99  # of the block mesh's vertices within BLOCKS_VERTEX_M of the one-block mesh
+# The all verb at a small size: 21 frames (2 fragments) of the same orbit, fast preset.
+ALL_FRAMES = 21
+ALL_ATE_M = 0.03
+ALL_ARTIFACTS = ("fragments/fragments.log", "registration/odometry.log", "registration/loop.log",
+                 "posegraph/pose.log", "slac/pose_slac.log", "integrate/mesh.ply", "integrate/trajectory.log",
+                 "integrate/ate.json", "registration/gt.log", "registration/gt.info",
+                 "registration/registration_pr.json")
 CALIB_PARITY_SHAPE = (4096, 512)
 
 
@@ -136,6 +169,11 @@ def phase_done(name: str) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def synchronize(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 # A kernel that spins this many clock cycles (about 5 ms) is queued ahead of a
@@ -229,6 +267,11 @@ def phase_build() -> None:
 # path's 8-pair batches. The first of each list is the one the kernels line reports.
 NN_SHAPES = [(16, 4096, 8192), (16, 1024, 8192), (16, 8192, 8192), (8, 1024, 8192), (8, 4096, 8192)]
 ICP_SHAPES = [(16, 4096, 8192), (16, 1024, 8192), (8, 1024, 8192), (8, 4096, 8192)]
+# The correspondence harvest's query: fragment clouds padded to the full
+# preset's capacity, about as full as config 3's (54-61k points, PERF.md).
+HARVEST_CAPACITY = 1 << 17
+HARVEST_POINTS = 60000
+HARVEST_PLAIN_QUERIES = 8192
 # Multiples of nothing; fewer refs than one chunk; one batch.
 RAGGED_SHAPES = [(3, 1000, 5003), (2, 700, 20), (1, 4096, 8192)]
 ICP_MAX_DIST = 0.075
@@ -432,11 +475,58 @@ def check_calib_kernels() -> dict:
     return out
 
 
+def check_nearest_at_harvest_shape(rng, dev) -> dict:
+    """``nearest_batch`` at the harvest's shape: two padded fragment clouds of
+    ``HARVEST_CAPACITY`` rows, ``HARVEST_POINTS`` of them valid. The plain
+    version runs on the first ``HARVEST_PLAIN_QUERIES`` queries against every
+    ref; there the indices must be equal and d2 within 1e-5. The scratch cache
+    must have grown to the launch's partial results."""
+    from elasticreconstruction_tpu_torch.kernels.cuda import build, nn
+
+    n, k = HARVEST_CAPACITY, HARVEST_PLAIN_QUERIES
+    ref, _ = surface(rng, (1, n))
+    query, _ = surface(rng, (1, n))
+    query += rng.normal(0.0, 0.01, query.shape).astype(np.float32)
+    mask = np.zeros((1, n), bool)
+    mask[:, :HARVEST_POINTS] = True
+    q, r, m = (torch.from_numpy(x).to(dev) for x in (query, ref, mask))
+    name = f"nearest_batch {(1, n, n)} (harvest)"
+    d_k, i_k = twice(name, lambda: nn.nearest_batch(q, r, m))
+    d_p, i_p = nn.nearest_batch_plain(q[:, :k], r, m)
+    torch.cuda.synchronize()
+    mismatches = int((i_k[:, :k] != i_p).sum())
+    err = (d_k[:, :k] - d_p).abs().max().item()
+    geo = nn.plan(1, n, n, nn.sm_count(q.device.index))
+    floats = 2 * geo.splits * geo.tiles * nn.QUERIES_PER_BLOCK
+    cached = build._scratch[q.device].numel()
+    print(f"{name}: on the first {k} queries index mismatches {mismatches}, max |d2 kernel - plain| {err:.3g}; "
+          f"grid {(geo.tiles, geo.splits, 1)}, {geo.range} refs a block, scratch {4 * floats / 1e6:.1f} MB "
+          f"(cache {4 * cached / 1e6:.1f} MB)")
+    if mismatches or not err <= 1e-5:
+        fail(f"{name}: {mismatches} index mismatches, max |d2 difference| {err} (want 0 and <= 1e-5)")
+    if geo.splits < 64 or cached < floats:
+        fail(f"{name}: {geo.splits} ref splits, scratch cache {cached} floats < {floats}")
+    ms = cuda_ms(lambda: nn.nearest_batch(q, r, m), reps=10)
+    one_call = call_ms(lambda: nn.nearest_batch(q, r, m), reps=10)
+    qk, r_far = q[:, :k], torch.where(m[..., None], r, 1e18)
+    plain = cuda_ms(lambda: nn.nearest_batch_plain(qk, r, m), reps=2, warmup=1)
+    lib = cuda_ms(lambda: torch.cdist(qk, r_far, compute_mode="use_mm_for_euclid_dist").min(dim=-1), reps=3)
+    bnd, by = bound_ms(NN_OPS_PER_PAIR * n * n, 4 * 3 * 2 * n + n + 8 * n)
+    valid_share = HARVEST_POINTS / n
+    print(f"  ms kernel {ms:.4f} (one call {one_call:.4f}), bound {bnd:.4f} ({by}), time/bound {ms / bnd:.2f}; "
+          f"over {k} queries: plain {plain:.4f}, cdist+min {lib:.4f}; valid refs {valid_share:.3f} of those scanned")
+    return {"max_abs_err": err, "ms": ms, "call_ms": one_call, "plain_ms": None, "library_ms": None,
+            "plain_ms_first_queries": plain, "library_ms_first_queries": lib, "first_queries": k,
+            "bound_ms": bnd, "bound_by": by, "shape": [1, n, n], "index_mismatches": mismatches,
+            "splits": geo.splits, "scratch_mb": 4 * floats / 1e6, "valid_ref_share": valid_share}
+
+
 def phase_kernel_parity() -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     print_main_loops()
     nn_by_shape = [check_nearest(*nn_inputs(rng, *shape, dev), time_plain=True) for shape in NN_SHAPES]
+    nn_by_shape.append(check_nearest_at_harvest_shape(rng, dev))
     icp_by_shape = [check_normal_eqs(icp_inputs(rng, *shape, dev), time_plain=True) for shape in ICP_SHAPES]
     for shape in RAGGED_SHAPES:
         check_nearest(*nn_inputs(rng, *shape, dev))
@@ -1002,8 +1092,10 @@ def fragments_path(dev, tmp: str, intr, num_frames: int, extra_argv=(), seed: in
     return rec
 
 
-def phase_fragments(seed: int = 0) -> dict:
-    """The fragments path at full width on the card, then the per-frame costs of its ops."""
+def phase_fragments(tmp: str, seed: int = 0) -> dict:
+    """The fragments path at full width on the card (dataset and artifacts
+    under ``tmp``), then the per-frame costs of its ops. Returns its record,
+    the dataset under ``"dataset"``."""
     from elasticreconstruction_tpu_torch.core import se3
     from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
     from elasticreconstruction_tpu_torch.kernels import tsdf
@@ -1012,32 +1104,264 @@ def phase_fragments(seed: int = 0) -> dict:
     from elasticreconstruction_tpu_torch.pipeline import run
 
     dev = torch.device("cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        reset_launch_counts()
-        rec = fragments_path(dev, tmp, PRIMESENSE, FRAG_FRAMES, seed=seed)
-        rec["launches"] = launch_counts()
-        print(json.dumps({"fragments_path_launches_by_shape": launches_by_shape()}))
-        require_launched("fragments", rec["launches"], ["nearest_batch"])
-        phase_done("fragments path: render, fragments, register and posegraph verbs")
+    reset_launch_counts()
+    rec = fragments_path(dev, tmp, PRIMESENSE, FRAG_FRAMES, seed=seed)
+    rec["launches"] = launch_counts()
+    print(json.dumps({"fragments_path_launches_by_shape": launches_by_shape()}))
+    require_launched("fragments", rec["launches"], ["nearest_batch"])
+    phase_done("fragments path: render, fragments, register and posegraph verbs")
 
-        # Per-frame costs at full width: frame 1 against the model of frame 0,
-        # at its ground-truth pose.
-        ds = rec.pop("dataset")
-        cfg = run.config_from_args(run.build_parser().parse_args(["fragments"])).fragment
-        frames = torch.from_numpy(ds.depth_chunk(0, 11)).to(dev)
-        vol = tsdf.make_volume(cfg.volume_shape, cfg.voxel_size, _volume_origin(cfg), device=dev)
-        vol = tsdf.fuse(vol, frames[0], se3.identity(device=dev), ds.intrinsics, max_weight=cfg.max_weight,
-                        depth_min=cfg.depth_min, depth_max=cfg.depth_max)
-        pose1 = torch.from_numpy(np.linalg.inv(ds.gt_poses[0]) @ ds.gt_poses[1]).float().to(dev)
-        rec["per_frame_ms"] = frame_op_times(vol, frames[1], pose1, ds.intrinsics, cfg)
-        rec["host_syncs_per_frame"] = syncs_per_frame(vol, frames[1], pose1, ds.intrinsics, cfg)
-        prof = device_profile(f"build_fragment ({len(frames)} frames)",
-                              lambda: build_fragment(frames, ds.intrinsics, cfg), top=8, warm=False)
-        rec["build_fragment_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share", "kernels")}
+    # Per-frame costs at full width: frame 1 against the model of frame 0,
+    # at its ground-truth pose.
+    ds = rec.pop("dataset")
+    cfg = run.config_from_args(run.build_parser().parse_args(["fragments"])).fragment
+    frames = torch.from_numpy(ds.depth_chunk(0, 11)).to(dev)
+    vol = tsdf.make_volume(cfg.volume_shape, cfg.voxel_size, _volume_origin(cfg), device=dev)
+    vol = tsdf.fuse(vol, frames[0], se3.identity(device=dev), ds.intrinsics, max_weight=cfg.max_weight,
+                    depth_min=cfg.depth_min, depth_max=cfg.depth_max)
+    pose1 = torch.from_numpy(np.linalg.inv(ds.gt_poses[0]) @ ds.gt_poses[1]).float().to(dev)
+    rec["per_frame_ms"] = frame_op_times(vol, frames[1], pose1, ds.intrinsics, cfg)
+    rec["host_syncs_per_frame"] = syncs_per_frame(vol, frames[1], pose1, ds.intrinsics, cfg)
+    prof = device_profile(f"build_fragment ({len(frames)} frames)",
+                          lambda: build_fragment(frames, ds.intrinsics, cfg), top=8, warm=False)
+    rec["build_fragment_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share", "kernels")}
     faults = rec.pop("faults")
     print(json.dumps({"fragments_path": rec}))
     if faults:
         fail("fragments path: " + "; ".join(faults))
+    rec["dataset"] = ds
+    return rec
+
+
+def run_verb(argv: list) -> list[dict]:
+    """``run.main(argv)``, failing unless it returns 0; its stage log records
+    (one JSON object a line on standard output), printed again as they came."""
+    import contextlib
+    import io
+
+    from elasticreconstruction_tpu_torch.pipeline import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = run.main(argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if code != 0:
+        fail(f"the {argv[0]} verb returned {code}")
+    return [json.loads(line) for line in text.splitlines() if line.startswith('{"stage"')]
+
+
+def find_log(logs: list[dict], stage: str, msg: str) -> dict:
+    for rec in logs:
+        if rec["stage"] == stage and rec["msg"] == msg:
+            return rec
+    fail(f"no {stage!r} log record {msg!r}")
+
+
+def scene_path(dev, tmp: str, ds, extra_argv=(), seed: int = 0) -> dict:
+    """The ``optimize --slac-mode none``, ``integrate`` and ``evaluate`` verbs
+    on the fragments path's directory under ``tmp``, each timed with its peak
+    memory, and their files held to ground truth. Returns the record with its
+    ``faults`` and the verbs' log records under ``"logs"``."""
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.pipeline import run
+    from elasticreconstruction_tpu_torch.synthetic import scenes
+
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    argv = ["--data", data, "--out", out, "--seed", str(seed), "--device", str(dev), "--slac-mode", "none",
+            *extra_argv]
+    cfg = run.config_from_args(run.build_parser().parse_args(["integrate", *argv]))
+    rec, logs = {}, {}
+    for verb in ("optimize", "integrate", "evaluate"):
+        synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logs[verb] = run_verb([verb, *argv])
+        synchronize(dev)
+        rec[verb + "_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            rec[verb + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    harvest = find_log(logs["optimize"], "optimize", "correspondences")
+    done = find_log(logs["integrate"], "integrate", "done")
+    rec.update(correspondences=harvest["count"], harvest_edges=harvest["edges"],
+               harvest_ms_per_edge=1e3 * harvest["seconds"] / max(harvest["edges"], 1),
+               # Wall time a frame of the fuse loop, PNG decoding and the copy to the device included.
+               fuse_loop_ms_per_frame=1e3 * done["fuse_seconds"] / max(done["frame_fusions"], 1),
+               **{k: done[k] for k in ("vertices", "faces", "frames", "blocks", "wanted", "tile",
+                                        "extract_seconds", "weld_seconds", "write_seconds")})
+
+    faults = []
+    nf = len(io_logfmt.read_log(os.path.join(out, "posegraph", "pose.log")).entries)
+    traj = io_logfmt.read_log(os.path.join(out, "integrate", "trajectory.log")).matrices()
+    n = min(len(ds), nf * cfg.frames_per_fragment)
+    if traj.shape != (n, 4, 4) or not np.isfinite(traj).all():
+        faults.append(f"trajectory.log holds {traj.shape} poses (want {n}) or non-finite values")
+    with open(os.path.join(out, "integrate", "ate.json")) as f:
+        metrics = json.load(f)
+    rec["ate"] = metrics
+    if not metrics["ate_rmse"] < SCENE_ATE_M:
+        faults.append(f"ate_rmse {metrics['ate_rmse']:.4f} m >= {SCENE_ATE_M}")
+    verts, faces = io_logfmt.read_ply_mesh(os.path.join(out, "integrate", "mesh.ply"))
+    if not (len(faces) > SCENE_MIN_FACES and np.isfinite(verts).all()):
+        faults.append(f"mesh.ply has {len(faces)} faces or non-finite vertices")
+    # Vertices in ground truth's frame, aligned at frame 0 as the cloud check
+    # aligns each fragment (the ATE alignment fits positions alone, which an
+    # arc of camera centres leaves free to turn).
+    align = torch.from_numpy((ds.gt_poses[0].astype(np.float64) @ np.linalg.inv(traj[0])).astype(np.float32))
+    v = torch.from_numpy(verts) @ align[:3, :3].T + align[:3, 3]
+    v = v.to(dev)
+    sdf = scenes.livingroom_scene()(v).abs()
+    rec["mesh_mean_abs_sdf_m"] = sdf.mean().item()
+    rec["mesh_share_within_2cm"] = (sdf < 0.02).float().mean().item()
+    if not (rec["mesh_mean_abs_sdf_m"] < SCENE_MESH_MEAN_M and rec["mesh_share_within_2cm"] >= SCENE_MESH_SHARE):
+        faults.append(f"mesh off the surface: mean |SDF| {rec['mesh_mean_abs_sdf_m']:.4f} m, "
+                      f"{rec['mesh_share_within_2cm']:.3f} of vertices within 2 cm")
+    reg = os.path.join(out, "registration")
+    if os.path.exists(os.path.join(reg, "loop.log")):
+        if not os.path.exists(os.path.join(reg, "registration_pr.json")):
+            faults.append("loop.log exists but registration_pr.json was not written")
+        else:
+            with open(os.path.join(reg, "registration_pr.json")) as f:
+                rec["registration_pr"] = json.load(f)
+    rec.update(faults=faults, logs=logs)
+    return rec
+
+
+def check_blocks(dev, tmp: str, ds, logs: dict, extra_argv=()) -> dict:
+    """``run_integrate`` again with ``scene_max_shape`` cut to tile the scene
+    into 2 x 1 x 2 blocks: the stitched mesh must match the one-block mesh,
+    faces within ``BLOCKS_FACES_RTOL`` and ``BLOCKS_SHARED`` of its vertices
+    within ``BLOCKS_VERTEX_M`` of a one-block vertex. (Welded vertices are rounded to a 10 um grid, and a block's
+    origin moves a vertex by an ulp, across a rounding boundary for about 1%
+    of them: they cannot be compared as keys.)"""
+    import dataclasses
+
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.integrate import blocks
+    from elasticreconstruction_tpu_torch.pipeline import run, stages
+
+    out = os.path.join(tmp, "out")
+    argv = ["--data", os.path.join(tmp, "data"), "--out", out, "--device", str(dev), "--slac-mode", "none",
+            *extra_argv]
+    cfg = run.config_from_args(run.build_parser().parse_args(["integrate", *argv]))
+    want = find_log(logs["integrate"], "integrate", "volume plan")["wanted"]
+    ov = cfg.scene_block_overlap
+    shape = (want[0] // 2 + 2 * ov + 1, want[1], want[2] // 2 + 2 * ov + 1)
+    n_blocks = len(blocks.plan_blocks(tuple(want), shape, overlap=ov).blocks)
+    if n_blocks != 4:
+        fail(f"scene_max_shape {shape} tiles {want} into {n_blocks} blocks, not 2 x 1 x 2")
+    v1, f1 = io_logfmt.read_ply_mesh(os.path.join(out, "integrate", "mesh.ply"))
+    synchronize(dev)
+    t0 = time.perf_counter()
+    stats = stages.run_integrate(ds, dataclasses.replace(cfg, scene_max_shape=shape), device=dev)
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    v2, f2 = io_logfmt.read_ply_mesh(os.path.join(out, "integrate", "mesh.ply"))
+    dist = nearest_distance(v2, v1, dev, BLOCKS_VERTEX_M)
+    rec = {"blocks": stats["blocks"], "max_shape": list(shape), "tile": stats["tile"], "seconds": wall,
+           "faces_one_block": len(f1), "faces_blocks": len(f2), "vertices_one_block": len(v1),
+           "vertices_blocks": len(v2), "shared_vertex_share": float((dist < BLOCKS_VERTEX_M).mean()),
+           "vertex_distance_bound_m": float(dist.max()) if len(dist) else 0.0}
+    print(json.dumps({"one_block_vs_blocks": rec}))
+    if not (abs(len(f2) - len(f1)) <= BLOCKS_FACES_RTOL * len(f1) and rec["shared_vertex_share"] >= BLOCKS_SHARED):
+        fail(f"the 2 x 1 x 2 block mesh differs from the one-block mesh: {rec}")
+    return rec
+
+
+def nearest_distance(a: np.ndarray, b: np.ndarray, dev, tol: float) -> np.ndarray:
+    """Distance in float64 from each point of ``a`` to its nearest point of
+    ``b``, exact below ``tol``: the candidate ``nn.nearest`` finds, and where
+    that is ``tol`` or more away (its f32 distance cannot tell points 0.1 mm
+    apart at metres from the origin), an exhaustive float64 search."""
+    from elasticreconstruction_tpu_torch.kernels.cuda import nn
+
+    ta, tb = (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev) for x in (a, b))
+    _, idx = nn.nearest(ta, tb, torch.ones(len(b), dtype=torch.bool, device=dev))
+    a64, b64 = ta.double(), tb.double()
+    dist = torch.linalg.norm(a64 - b64[idx.long()], dim=1)
+    miss = (dist >= tol).nonzero()[:, 0]
+    for s in range(0, len(miss), 256):
+        rows = miss[s : s + 256]
+        dist[rows] = torch.cdist(a64[rows], b64, compute_mode="donot_use_mm_for_euclid_dist").amin(1)
+    return dist.cpu().numpy()
+
+
+def scene_profile(dev, ds, out: str, logs: dict) -> dict:
+    """Per-frame integration and ``extract_mesh`` at the scene's tile, on the
+    card: wall and profiled device-busy time with the kernel count."""
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.integrate import mesh, scene
+    from elasticreconstruction_tpu_torch.kernels import tsdf
+    from elasticreconstruction_tpu_torch.pipeline import run
+
+    cfg = run.config_from_args(run.build_parser().parse_args(["integrate"]))
+    plan = find_log(logs["integrate"], "integrate", "volume plan")
+    scfg = scene.SceneConfig(volume_shape=tuple(plan["tile"]), voxel_size=cfg.scene_voxel_size,
+                             origin=tuple(plan["origin"]))
+    poses = torch.from_numpy(io_logfmt.read_log(os.path.join(out, "integrate", "trajectory.log"))
+                             .matrices().astype(np.float32)).to(dev)
+    vol = scene.make_scene_volume(scfg, device=dev)
+    for s in range(0, len(poses), 16):
+        depths = torch.from_numpy(ds.depth_chunk(s, min(16, len(poses) - s))).to(dev)
+        vol = scene.integrate_frames_scatter(vol, depths, poses[s : s + len(depths)], ds.intrinsics, scfg)
+    depths = torch.from_numpy(ds.depth_chunk(0, 16)).to(dev)
+    fuse = device_profile("integrate_frames_scatter (16 frames)",
+                          lambda: scene.integrate_frames_scatter(vol, depths, poses[:16], ds.intrinsics, scfg))
+    ext = device_profile("extract_mesh", lambda: mesh.extract_mesh(vol, capacity_per_slab=cfg.mesh_capacity_per_slab))
+    return {"integrate_frame_wall_ms": fuse["wall_ms"] / 16,
+            "integrate_frame_busy_ms": fuse["device_busy_ms"] / 16 if fuse["kernels"] else "not measured",
+            "integrate_frame_kernels": fuse["kernels"] / 16,
+            "extract_mesh_wall_ms": ext["wall_ms"], "extract_mesh_busy_ms": ext["device_busy_ms"],
+            "extract_mesh_kernels": ext["kernels"], "tile": plan["tile"]}
+
+
+def phase_scene(tmp: str, frag: dict) -> dict:
+    """The scene path on the fragments path's artifacts: ``optimize``,
+    ``integrate`` and ``evaluate``, then one block against several and the
+    per-frame profile."""
+    dev = torch.device("cuda")
+    ds = frag["dataset"]
+    reset_launch_counts()
+    rec = scene_path(dev, tmp, ds)
+    rec["launches"] = launch_counts()
+    print(json.dumps({"scene_path_launches_by_shape": launches_by_shape()}))
+    require_launched("scene", rec["launches"], ["nearest_batch"])
+    phase_done("scene path: optimize, integrate and evaluate verbs")
+    faults, logs = rec.pop("faults"), rec.pop("logs")
+    rec["profile"] = scene_profile(dev, ds, os.path.join(tmp, "out"), logs)
+    rec["blocks_check"] = check_blocks(dev, tmp, ds, logs)
+    print(json.dumps({"scene_path": rec}))
+    if faults:
+        fail("scene path: " + "; ".join(faults))
+    return rec
+
+
+def phase_all(seed: int = 0) -> dict:
+    """The ``all`` verb on a fresh directory: ``ALL_FRAMES`` frames of the
+    fragments path's orbit at the ``fast`` preset, every artifact written,
+    ATE under ``ALL_ATE_M``."""
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
+    from elasticreconstruction_tpu_torch.pipeline import dataset
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        dataset.generate_synthetic(data, num_frames=ALL_FRAMES, intr=PRIMESENSE, seed=seed, device=dev,
+                                   **FRAG_ORBIT)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = run_verb(["all", "--data", data, "--out", out, "--preset", "fast", "--frames-per-fragment", "10",
+                         "--slac-mode", "none", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        rec = {"frames": ALL_FRAMES, "seconds": time.perf_counter() - t0, "launches": launch_counts()}
+        require_launched("all", rec["launches"], ["nearest_batch"])
+        missing = [name for name in ALL_ARTIFACTS if not os.path.exists(os.path.join(out, name))]
+        rec["ate"] = find_log(logs, "evaluate", "done")
+    print(json.dumps({"all_verb": rec}))
+    if missing or not rec["ate"]["ate_rmse"] < ALL_ATE_M:
+        fail(f"the all verb: missing {missing}, ate_rmse {rec['ate']['ate_rmse']:.4f} m (limit {ALL_ATE_M})")
     return rec
 
 
@@ -1109,8 +1433,14 @@ def main() -> int:
     phase_done("calibration path")
     by_path["stages"] = phase_stages()["launches"]
     phase_done("stage path")
-    by_path["fragments"] = phase_fragments()["launches"]
-    phase_done("fragments path")
+    with tempfile.TemporaryDirectory() as tmp:
+        frag = phase_fragments(tmp)
+        by_path["fragments"] = frag["launches"]
+        phase_done("fragments path")
+        by_path["scene"] = phase_scene(tmp, frag)["launches"]
+        phase_done("scene path")
+    by_path["all"] = phase_all()["launches"]
+    phase_done("all verb")
 
     kernels = []
     for name, meta in KERNELS.items():

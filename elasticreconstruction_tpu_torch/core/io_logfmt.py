@@ -1,4 +1,4 @@
-"""Reference-compatible file formats: .log, .info and .pcd.
+"""Reference-compatible file formats: .log, .info, .pcd, corres, ctr, xyzn and .ply.
 
 These formats are the reference's inter-stage API: every executable
 communicates through them. The writers produce byte-identical files to the
@@ -21,6 +21,7 @@ Host-side numpy IO by design: tensors are moved to the host by the caller.
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -113,6 +114,58 @@ def write_info(path: str | os.PathLike, info: InfoFile) -> None:
     _write_records(path, ((e.i, e.j, e.k, e.info) for e in info.entries))
 
 
+def read_corres(path: str | os.PathLike) -> np.ndarray:
+    """Correspondence index pairs ``(N, 2)`` int32 (BuildCorrespondence output)."""
+    data = np.loadtxt(path, dtype=np.int64, ndmin=2)
+    if data.size == 0:
+        return np.zeros((0, 2), dtype=np.int32)
+    return data[:, :2].astype(np.int32)
+
+
+def write_corres(path: str | os.PathLike, pairs: np.ndarray) -> None:
+    np.savetxt(path, np.asarray(pairs, dtype=np.int64), fmt="%d")
+
+
+def corres_filename(i: int, j: int) -> str:
+    return f"corres_{i}_{j}.txt"
+
+
+def parse_corres_filename(name: str) -> tuple[int, int] | None:
+    m = re.fullmatch(r"corres_(\d+)_(\d+)\.txt", name)
+    return (int(m.group(1)), int(m.group(2))) if m else None
+
+
+def read_ctr(path: str | os.PathLike) -> tuple[np.ndarray, int, float]:
+    """Control lattice file -> (positions ``(num, 3)``, resolution, length)."""
+    with open(path, "r") as f:
+        header = f.readline().split()
+        num, res, length = int(header[0]), int(header[1]), float(header[2])
+        data = np.loadtxt(f, dtype=np.float64, ndmin=2)
+    if data.shape[0] != num:
+        raise ValueError(f"{path}: ctr file claims {num} vertices, has {data.shape[0]}")
+    return data[:, :3], res, length
+
+
+def write_ctr(path: str | os.PathLike, positions: np.ndarray, resolution: int, length: float) -> None:
+    positions = np.asarray(positions, dtype=np.float64)
+    with open(path, "w") as f:
+        f.write(f"{positions.shape[0]} {resolution} {length:.6f}\n")
+        for p in positions:
+            f.write(f"{p[0]:.8f} {p[1]:.8f} {p[2]:.8f}\n")
+
+
+def write_xyzn(path: str | os.PathLike, points: np.ndarray, normals: np.ndarray) -> None:
+    """Plain ``x y z nx ny nz`` per line (the reference FragmentOptimizer's
+    optional deformed-cloud output format)."""
+    data = np.concatenate([np.asarray(points, np.float64), np.asarray(normals, np.float64)], axis=1)
+    np.savetxt(path, data, fmt="%.6f")
+
+
+def read_xyzn(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray]:
+    arr = np.loadtxt(path, dtype=np.float64, ndmin=2)
+    return arr[:, :3].astype(np.float32), arr[:, 3:6].astype(np.float32)
+
+
 def write_pcd(
     path: str | os.PathLike,
     points: np.ndarray,
@@ -187,3 +240,43 @@ def read_pcd(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray | None]:
         jx = [fields.index(c) for c in ("normal_x", "normal_y", "normal_z")]
         normals = arr[:, jx].astype(np.float32)
     return points, normals
+
+
+def write_ply_mesh(path: str | os.PathLike, vertices: np.ndarray, triangles: np.ndarray) -> None:
+    """ASCII PLY mesh writer (the integrate stage's ``mesh.ply``)."""
+    vertices = np.asarray(vertices, dtype=np.float32)
+    triangles = np.asarray(triangles, dtype=np.int64)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {vertices.shape[0]}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write(f"element face {triangles.shape[0]}\n")
+        f.write("property list uchar int vertex_indices\nend_header\n")
+        for v in vertices:
+            f.write(f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        for t in triangles:
+            f.write(f"3 {t[0]} {t[1]} {t[2]}\n")
+
+
+def read_ply_mesh(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray]:
+    """The files of :func:`write_ply_mesh` -> (vertices ``(V, 3)`` f32, faces ``(F, 3)`` int64)."""
+    with open(path) as f:
+        if f.readline().strip() != "ply" or f.readline().strip() != "format ascii 1.0":
+            raise ValueError(f"{path}: not an ASCII PLY file")
+        counts = {}
+        for line in f:
+            words = line.split()
+            if words[:1] == ["element"]:
+                counts[words[1]] = int(words[2])
+            elif words[:1] == ["end_header"]:
+                break
+        else:
+            raise ValueError(f"{path}: PLY header has no end_header line")
+        nv, nf = counts.get("vertex", 0), counts.get("face", 0)
+        verts = np.loadtxt(f, dtype=np.float32, max_rows=nv, ndmin=2) if nv else np.zeros((0, 3), np.float32)
+        faces = np.loadtxt(f, dtype=np.int64, max_rows=nf, ndmin=2) if nf else np.zeros((0, 4), np.int64)
+    if verts.shape != (nv, 3) or faces.shape != (nf, 4):
+        raise ValueError(f"{path}: expected {nv} vertices and {nf} faces")
+    if nf and not (faces[:, 0] == 3).all():
+        raise ValueError(f"{path}: faces other than triangles")
+    return verts, faces[:, 1:]

@@ -1,10 +1,12 @@
 """Elastic / SLAC fragment refinement.
 
-Only the configuration records are here so far; the correspondence harvest,
-the control lattice and the optimiser are still to port.
+The correspondence harvest (the reference's BuildCorrespondence) and the
+optimiser's configuration records are here; the control lattice and the
+optimiser itself are still to port.
 """
 
-from . import slac
+from . import correspondence, slac
+from .correspondence import CorresSet, build_correspondences
 from .slac import SlacConfig, SlacMode
 
-__all__ = ["slac", "SlacConfig", "SlacMode"]
+__all__ = ["correspondence", "slac", "CorresSet", "build_correspondences", "SlacConfig", "SlacMode"]

@@ -1,7 +1,8 @@
 """Carry pipeline state between the JAX package and this port as numpy arrays.
 
 The pipeline has no weights; its state is point clouds, prepped fragments and
-registration results, and the TSDF volumes of fragment odometry. These converters take the JAX package's containers (or
+registration results, the TSDF volumes of fragment odometry and the scene, and
+harvested correspondences. These converters take the JAX package's containers (or
 any object with the same field names) field by field through ``np.asarray``,
 so this module never imports the JAX package, and hand back the port's
 containers on a given device. ``RegistrationConfig`` and ``PGOConfig`` keep
@@ -19,7 +20,9 @@ import torch
 
 from .core.camera import Intrinsics
 from .core.types import PointCloud, resolve_device
+from .elastic.correspondence import CorresSet
 from .elastic.slac import SlacConfig, SlacMode
+from .integrate.scene import SceneConfig
 from .kernels.tsdf import TSDFVolume
 from .odometry.fragments import FragmentConfig
 from .odometry.kinfu import OdometryConfig
@@ -103,3 +106,21 @@ def volume_from_numpy(tsdf, weight, origin, voxel_size, truncation, device="cuda
         voxel_size=float(np.float32(voxel_size)),
         truncation=float(np.float32(truncation)),
     )
+
+
+def volume_from(vol, device="cuda") -> TSDFVolume:
+    """A volume with the reference's field names (``tsdf``, ``weight``,
+    ``origin``, ``voxel_size``, ``truncation``) -> the port's ``TSDFVolume``."""
+    return volume_from_numpy(vol.tsdf, vol.weight, vol.origin, vol.voxel_size, vol.truncation, device)
+
+
+def scene_config_from(cfg) -> SceneConfig:
+    """A ``SceneConfig`` with the same fields -> the port's ``SceneConfig``."""
+    return SceneConfig(**cfg._asdict())
+
+
+def corres_to_numpy(corres) -> CorresSet:
+    """A correspondence set (the JAX package's ``CorresSet`` or the port's) as
+    a ``CorresSet`` of numpy arrays; absent optional fields stay ``None``."""
+    return CorresSet(*(None if x is None else (x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x))
+                       for x in corres))

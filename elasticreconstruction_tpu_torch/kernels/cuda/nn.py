@@ -103,16 +103,24 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+# Elements of one (B, block_q, Nr) tile of the plain version on the CPU, so
+# that its float64 temporaries stay in the caches.
+CPU_TILE = 1 << 19
+
+
 def nearest_batch_plain(
-    query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, *, block_q: int = 256
+    query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, *, block_q: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, rounding for rounding (module docstring).
 
-    Blocked over ``block_q`` queries so the (B, block_q, Nr) tiles stay small.
+    Blocked over ``block_q`` queries so the (B, block_q, Nr) tiles stay small:
+    by default 256 on the card, ``CPU_TILE`` elements on the CPU.
     """
     b, nq, _ = query.shape
     if ref.shape[1] == 0:
         raise ValueError("nearest_batch needs at least one reference point")
+    if block_q is None:
+        block_q = max(1, CPU_TILE // (b * ref.shape[1])) if query.device.type == "cpu" else 256
     qq = _sqnorm(query)
     w = (_sqnorm(ref) + (~ref_mask).to(torch.float32) * BIG)[:, None, :]  # (B, 1, Nr)
     r2 = (-2.0 * ref)[:, None, :, :]  # (B, 1, Nr, 3)

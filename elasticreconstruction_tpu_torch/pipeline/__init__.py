@@ -6,7 +6,7 @@ previous stage's outputs. This package keeps that property (same
 .log/.info/.pcd artifact layout, same resumability).
 
 CLI: ``python -m elasticreconstruction_tpu_torch.pipeline.run <stage> ...``
-Stages ported so far: synth | fragments | register | posegraph.
+Stages: synth | fragments | register | posegraph | optimize | integrate | evaluate | all.
 """
 
 from . import config, dataset, stages

@@ -1,10 +1,13 @@
 """Pipeline CLI: ``python -m elasticreconstruction_tpu_torch.pipeline.run <stage>``.
 
-Counterpart of ``elasticreconstruction_tpu/pipeline/run.py`` for the verbs
-the port has: ``synth``, ``fragments``, ``register`` and ``posegraph``. Every
-stage resumes from the previous stage's file artifacts under ``--out``
-(``synth`` writes the dataset under ``--data``). Stages run on ``--device``
-(default ``cuda``, which raises if no card is present). The reference's
+Counterpart of ``elasticreconstruction_tpu/pipeline/run.py``, with its verbs
+``synth``, ``fragments``, ``register``, ``posegraph``, ``optimize``,
+``integrate``, ``evaluate`` and ``all``. Every stage resumes from the previous
+stage's file artifacts under ``--out`` (``synth`` writes the dataset under
+``--data``). Stages run on ``--device`` (default ``cuda``, which raises if no
+card is present). ``optimize`` and ``all`` run only ``--slac-mode none`` (the
+elastic optimiser is not ported yet) and refuse any other mode before any
+stage runs; the CLI's default mode is ``slac``. The reference's
 ``--profile`` (a ``jax.profiler`` trace) is not ported.
 """
 
@@ -19,9 +22,18 @@ from ..odometry.kinfu import OdometryConfig
 from ..registration.pair import RegistrationConfig
 from .config import PipelineConfig
 from .dataset import Dataset, generate_synthetic
-from .stages import run_fragments, run_posegraph, run_registration
+from .stages import (
+    check_slac_mode,
+    run_all,
+    run_evaluate,
+    run_fragments,
+    run_integrate,
+    run_optimize,
+    run_posegraph,
+    run_registration,
+)
 
-STAGES = ("synth", "fragments", "register", "posegraph")
+STAGES = ("synth", "fragments", "register", "posegraph", "optimize", "integrate", "evaluate", "all")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,6 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fragment-volume", type=int, default=None,
                    help="fragment TSDF resolution per axis; default 256 (full) / 128 (fast)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--spill-corres", action="store_true", help="optimize: write corres_<i>_<j>.txt point pairs")
+    p.add_argument("--spill-deformed", action="store_true",
+                   help="optimize: dump deformed fragment clouds (.xyzn); none under --slac-mode none")
     p.add_argument(
         "--preset",
         default="full",
@@ -101,12 +116,23 @@ def main(argv=None) -> int:
         print(f"synthetic dataset written to {args.data}")
         return 0
     cfg = config_from_args(args)
+    if args.stage in ("optimize", "all"):
+        check_slac_mode(cfg)
+    ds = Dataset(args.data) if args.stage in ("fragments", "integrate", "evaluate", "all") else None
     if args.stage == "fragments":
-        run_fragments(Dataset(args.data), cfg, device=args.device)
+        run_fragments(ds, cfg, device=args.device)
     elif args.stage == "register":
         run_registration(cfg, all_pairs=not args.odometry_only, device=args.device)
     elif args.stage == "posegraph":
         run_posegraph(cfg, device=args.device)
+    elif args.stage == "optimize":
+        run_optimize(cfg, spill_corres=args.spill_corres, spill_deformed=args.spill_deformed, device=args.device)
+    elif args.stage == "integrate":
+        run_integrate(ds, cfg, device=args.device)
+    elif args.stage == "evaluate":
+        run_evaluate(ds, cfg, device=args.device)
+    elif args.stage == "all":
+        run_all(ds, cfg, device=args.device)
     return 0
 
 

@@ -1,9 +1,9 @@
 """Stage functions: the reference executables as resumable functions.
 
-Counterpart of ``elasticreconstruction_tpu/pipeline/stages.py``; the
-``fragments``, ``register`` and ``posegraph`` stages are here, the others are
-still to port. Artifact layout mirrors the reference contracts so every stage
-is re-runnable from files:
+Counterpart of ``elasticreconstruction_tpu/pipeline/stages.py``: every stage
+of the rigid reconstruction (``slac_mode="none"``); the elastic modes of
+``optimize`` are still to port and raise. Artifact layout mirrors the
+reference contracts so every stage is re-runnable from files:
 
     out/fragments/cloud_bin_<f>.pcd      fragment clouds (local frame)
     out/fragments/local_<f>.log          per-frame camera-to-fragment poses
@@ -14,6 +14,13 @@ is re-runnable from files:
     out/registration/loop.log/.info      accepted loop-closure candidates
     out/posegraph/pose.log               optimized fragment poses
     out/posegraph/kept_edges.txt         loop edges surviving the line process
+    out/corres/corres_<i>_<j>.txt        harvested point pairs (--spill-corres)
+    out/slac/pose_slac.log               refined fragment poses
+    out/integrate/mesh.ply               scene mesh
+    out/integrate/trajectory.log         per-frame world poses
+    out/integrate/ate.json               trajectory error against gt.log
+    out/registration/gt.log/.info        ground-truth pair benchmark
+    out/registration/registration_pr.json  loop.log scored against it
 
 Stage functions take ``device=`` (default ``"cuda"``, which raises if no card
 is present).
@@ -25,12 +32,22 @@ import heapq
 import json
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..core import io_logfmt, se3
 from ..core.types import PointCloud, resolve_device
+from ..elastic.correspondence import build_correspondences
+from ..eval import ate as ate_mod
+from ..eval import gt_benchmark as gtb
+from ..eval import registration_pr as prmod
+from ..integrate import blocks as blocks_mod
+from ..integrate import mesh as mesh_mod
+from ..integrate.scene import SceneConfig, integrate_frames, integrate_frames_scatter
+from ..kernels import tsdf as tsdf_mod
+from ..kernels import voxel_grid
 from ..odometry import build_fragment
 from ..posegraph import EdgeList, optimize_pose_graph
 from ..registration import (
@@ -47,6 +64,22 @@ from .dataset import Dataset
 def _log(stage: str, msg: str, **kv) -> None:
     rec = {"stage": stage, "msg": msg, "t": round(time.time(), 3), **kv}
     print(json.dumps(rec), flush=True)
+
+
+def _sync(dev: torch.device) -> None:
+    """Wait for the device, so that a host clock read after it times the work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def check_slac_mode(cfg: PipelineConfig) -> None:
+    """Raise unless ``cfg.slac_mode`` is one the port runs: ``"none"``."""
+    if cfg.slac_mode != "none":
+        raise NotImplementedError(
+            f"slac_mode {cfg.slac_mode!r} needs the elastic optimiser (elastic/lattice.py, "
+            "elastic/arap.py, elastic/slac.py::optimize_fragments), which is not ported yet "
+            "(ROADMAP.md, Queue 1 item 9); run with slac_mode 'none'"
+        )
 
 
 # ---------------------------------------------------------------- fragments
@@ -123,6 +156,11 @@ def load_fragment_health(cfg: PipelineConfig, nf: int) -> list[dict]:
         else:
             health.append({"fragment": f, "suspect": False})
     return health
+
+
+def clouds_to(clouds: list[PointCloud], dev: torch.device) -> list[PointCloud]:
+    """numpy ``PointCloud``s (as :func:`load_fragment_clouds` gives them) as tensors on ``dev``."""
+    return [PointCloud(*(torch.from_numpy(x).to(dev) for x in c)) for c in clouds]
 
 
 def load_fragment_clouds(cfg: PipelineConfig) -> list[PointCloud]:
@@ -654,3 +692,298 @@ def run_posegraph(cfg: PipelineConfig, device="cuda") -> None:
         **{f"gauge_{k}": v for k, v in gauge_stats.items()},
         seconds=round(time.time() - t0, 2),
     )
+
+
+# ------------------------------------------------------- fragment optimizer
+
+
+def run_optimize(
+    cfg: PipelineConfig, *, spill_corres: bool = False, spill_deformed: bool = False, device="cuda"
+) -> dict:
+    """Correspondence harvest over the kept edges, then the fragment optimiser.
+
+    Only ``slac_mode="none"`` is ported: the harvest runs (and spills with
+    ``spill_corres``), the pose graph's poses pass through to
+    ``pose_slac.log``. Other modes raise before any work. ``spill_deformed``
+    dumps lattice-warped clouds, which mode ``none`` has none of.
+    """
+    check_slac_mode(cfg)
+    dev = resolve_device(device)
+    out = cfg.p_slac()
+    out.mkdir(parents=True, exist_ok=True)
+    clouds = load_fragment_clouds(cfg)
+    poses = io_logfmt.read_log(cfg.p_posegraph() / "pose.log").matrices().astype(np.float32)
+    edge_pairs = [(f, f + 1) for f in range(len(clouds) - 1)]
+    kept_path = cfg.p_posegraph() / "kept_edges.txt"
+    if kept_path.exists():
+        seen = set(edge_pairs)
+        with open(kept_path) as f:
+            for line in f:
+                i, j = map(int, line.split())
+                # Re-registered suspect odometry pairs are consecutive and
+                # already present as chain edges: skip duplicates.
+                if (i, j) not in seen:
+                    edge_pairs.append((i, j))
+                    seen.add((i, j))
+    t0 = time.time()
+
+    # The reference harvests at the pairwise-refined registration transforms,
+    # not the global poses (BuildCorrespondence re-runs ICP per edge): matching
+    # under them keeps the global misalignment out of the matches.
+    pair_T: dict = {}
+    reg = cfg.p_registration()
+    for name in ("odometry.log", "loop.log"):
+        p = reg / name
+        if p.exists():
+            for e in io_logfmt.read_log(p).entries:
+                pair_T[(e.i, e.j)] = e.transform.astype(np.float32)
+
+    # Viewpoint-baseline row weights (PipelineConfig.corres_baseline_weight).
+    edge_w = None
+    if cfg.corres_baseline_weight > 0.0:
+        edge_w = {}
+        for i, j in edge_pairs:
+            cosang = float(np.dot(poses[i][:3, 2], poses[j][:3, 2]))
+            edge_w[(i, j)] = 1.0 + cfg.corres_baseline_weight * (1.0 - cosang)
+
+    corres = build_correspondences(
+        clouds_to(clouds, dev),
+        torch.from_numpy(poses).to(dev),
+        edge_pairs,
+        max_distance=cfg.corres_max_distance,
+        capacity_per_edge=cfg.corres_capacity_per_edge,
+        pair_transforms=pair_T,
+        edge_weights=edge_w,
+    )
+    count = int(corres.count())
+    harvest_s = time.time() - t0
+    if spill_corres:
+        cdir = Path(cfg.out_dir) / "corres"
+        cdir.mkdir(parents=True, exist_ok=True)
+        cap = cfg.corres_capacity_per_edge
+        m_all, p_all, q_all = (x.cpu().numpy() for x in (corres.mask, corres.p, corres.q))
+        for e, (i, j) in enumerate(edge_pairs):
+            rows = slice(e * cap, (e + 1) * cap)
+            m = m_all[rows]
+            # Spill as point pairs (the array-native analog of index pairs).
+            pq = np.concatenate([p_all[rows][m], q_all[rows][m]], axis=1)
+            np.savetxt(cdir / f"corres_{i}_{j}.txt", pq, fmt="%.6f")
+    _log("optimize", "correspondences", count=count, edges=len(edge_pairs), seconds=harvest_s)
+
+    io_logfmt.write_log(out / "pose_slac.log", io_logfmt.Trajectory.from_matrices(poses))
+    _log("optimize", "skipped (mode=none)")
+    return {"mode": "none", "correspondences": count, "edges": len(edge_pairs), "harvest_seconds": harvest_s}
+
+
+# ------------------------------------------------------------------ integrate
+
+
+def _frame_world_poses(cfg: PipelineConfig):
+    """(frame poses (T,4,4), fragment index per frame, local poses (T,4,4),
+    fragment poses), in numpy float32 as the reference computes them."""
+    frag_dir = cfg.p_fragments()
+    pose_path = cfg.p_slac() / "pose_slac.log"
+    if not pose_path.exists():
+        pose_path = cfg.p_posegraph() / "pose.log"
+    if not pose_path.exists():
+        pose_path = frag_dir / "fragments.log"
+    bases = io_logfmt.read_log(pose_path).matrices().astype(np.float32)
+    K = cfg.frames_per_fragment
+    frames, fidx, locals_ = [], [], []
+    for f in range(len(bases)):
+        local = io_logfmt.read_log(frag_dir / f"local_{f}.log").matrices().astype(np.float32)
+        for k in range(K):  # overlap frame belongs to the next fragment
+            frames.append(bases[f] @ local[k])
+            fidx.append(f)
+            locals_.append(local[k])
+    return np.stack(frames), np.array(fidx), np.stack(locals_), bases
+
+
+def _contiguous_runs(idxs: np.ndarray) -> list[tuple[int, int]]:
+    """Sorted frame indices as ``[start, stop)`` runs of consecutive frames."""
+    runs: list[tuple[int, int]] = []
+    for k in map(int, idxs):
+        if runs and runs[-1][1] == k:
+            runs[-1] = (runs[-1][0], k + 1)
+        else:
+            runs.append((k, k + 1))
+    return runs
+
+
+def run_integrate(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
+    """Scene TSDF integration + meshing over a block-grid volume.
+
+    Scenes larger than ``scene_max_shape`` are tiled into overlapping blocks
+    (``integrate/blocks.py``): each block fuses only the frames whose
+    fragment surface intersects it, meshes are extracted per block, and
+    owned-region filtering stitches them. Writes ``mesh.ply`` and
+    ``trajectory.log``; returns the stage's numbers.
+    """
+    dev = resolve_device(device)
+    out = cfg.p_integrate()
+    out.mkdir(parents=True, exist_ok=True)
+    slac_dir = cfg.p_slac()
+    if cfg.slac_mode in ("slac", "nonrigid") and (
+        (slac_dir / "ctr.txt").exists() or (slac_dir / "ctr_0.txt").exists()
+    ):
+        raise NotImplementedError(
+            f"{slac_dir}: integrating through a control lattice (ctr*.txt) needs elastic/lattice.py, "
+            "which is not ported yet (ROADMAP.md, Queue 1 item 9)"
+        )
+    frame_poses, fidx, _, bases = _frame_world_poses(cfg)
+    n = min(len(ds), len(frame_poses))
+    intr = ds.intrinsics
+
+    # Volume bounds: global + per-fragment (for per-block frame culling).
+    clouds = load_fragment_clouds(cfg)
+    frag_lo = np.full((len(clouds), 3), np.inf)
+    frag_hi = np.full((len(clouds), 3), -np.inf)
+    for f, c in enumerate(clouds):
+        if not c.mask.any():
+            continue
+        w = c.points[c.mask] @ bases[f][:3, :3].T + bases[f][:3, 3]
+        frag_lo[f] = w.min(0)
+        frag_hi[f] = w.max(0)
+    margin = 4 * cfg.scene_voxel_size
+    lo = frag_lo.min(0) - margin
+    hi = frag_hi.max(0) + margin
+    want = tuple(int(np.ceil((hi[a] - lo[a]) / cfg.scene_voxel_size) + 1) for a in range(3))
+    plan = blocks_mod.plan_blocks(want, cfg.scene_max_shape, overlap=cfg.scene_block_overlap)
+    scfg = SceneConfig(volume_shape=plan.tile_shape, voxel_size=cfg.scene_voxel_size, origin=tuple(lo))
+    _log("integrate", "volume plan", wanted=list(want), tile=list(plan.tile_shape),
+         blocks=len(plan.blocks), origin=[round(v, 3) for v in lo])
+    fuse = integrate_frames_scatter if cfg.scene_use_scatter else integrate_frames
+    poses_dev = torch.from_numpy(frame_poses[:n]).to(dev)
+
+    chunk = 16
+    multi = len(plan.blocks) > 1
+    frame_lo = frag_lo[fidx[:n]]
+    frame_hi = frag_hi[fidx[:n]]
+    soup = []
+    frames_fused = 0
+    fuse_s = extract_s = 0.0
+    for blk in plan.blocks:
+        _sync(dev)
+        t0 = time.time()
+        vol = tsdf_mod.make_volume(
+            plan.tile_shape, cfg.scene_voxel_size, blk.world_origin(lo, cfg.scene_voxel_size), device=dev
+        )
+        if multi:
+            sel = blocks_mod.cull_frames(blk, plan, lo, cfg.scene_voxel_size, frame_lo, frame_hi, margin=0.5)
+        else:
+            sel = np.ones(n, bool)
+        idxs = np.nonzero(sel)[0]
+        for a, b in _contiguous_runs(idxs):
+            for s in range(a, b, chunk):
+                depths = torch.from_numpy(ds.depth_chunk(s, min(chunk, b - s))).to(dev)
+                vol = fuse(vol, depths, poses_dev[s : s + len(depths)], intr, scfg)
+        frames_fused += len(idxs)
+        _sync(dev)
+        t1 = time.time()
+        tris, mask = mesh_mod.extract_mesh(vol, capacity_per_slab=cfg.mesh_capacity_per_slab)
+        # Only the kept rows leave the device: the full soup is (nz-1) x capacity.
+        t_np = tris[mask].cpu().numpy()
+        del vol, tris, mask
+        t2 = time.time()
+        fuse_s += t1 - t0
+        extract_s += t2 - t1
+        if multi:
+            t_np, m_np = blocks_mod.filter_owned_triangles(
+                t_np, np.ones(len(t_np), bool), blk, plan, lo, cfg.scene_voxel_size
+            )
+            _log("integrate", "block", index=list(blk.index), frames=len(idxs), triangles=int(m_np.sum()))
+        soup.append(t_np)
+    fps = frames_fused / max(fuse_s + extract_s, 1e-9)
+    _log("integrate", "fused", frames=n, frame_fusions=frames_fused, frames_per_second=round(fps, 2))
+
+    t0 = time.time()
+    all_tris = np.concatenate(soup, axis=0) if soup else np.zeros((0, 3, 3), np.float32)
+    v, f = mesh_mod.weld_mesh(all_tris, np.ones(len(all_tris), bool))
+    weld_s = time.time() - t0
+    io_logfmt.write_ply_mesh(out / "mesh.ply", v, f)
+    io_logfmt.write_log(out / "trajectory.log", io_logfmt.Trajectory.from_matrices(frame_poses[:n].astype(np.float64)))
+    stats = dict(vertices=len(v), faces=len(f), frames=n, frame_fusions=frames_fused, blocks=len(plan.blocks),
+                 wanted=list(want), tile=list(plan.tile_shape), fuse_seconds=fuse_s, extract_seconds=extract_s,
+                 weld_seconds=weld_s, write_seconds=time.time() - t0 - weld_s)
+    _log("integrate", "done", **stats)
+    return stats
+
+
+# ------------------------------------------------------------------ evaluate
+
+
+def run_make_gt_benchmark(ds: Dataset, cfg: PipelineConfig, device="cuda") -> None:
+    """Derive the registration gt.log/gt.info pair benchmark from the dataset's
+    ground-truth trajectory and the fragment clouds (``eval/gt_benchmark.py``),
+    next to the registration outputs, with ``gt_benchmark_health.json``
+    naming the suspect fragments whose clouds it inherits."""
+    dev = resolve_device(device)
+    if ds.gt_poses is None:
+        raise ValueError(f"{ds.root}: the dataset has no gt.log")
+    out = cfg.p_registration()
+    out.mkdir(parents=True, exist_ok=True)
+    rcfg = cfg.registration
+    # Overlap testing needs registration-scale resolution only: full clouds
+    # would make the all-pairs sweep dominate the evaluation.
+    clouds = [voxel_grid.voxel_downsample(c, rcfg.icp_voxel_size, rcfg.fine_capacity)
+              for c in clouds_to(load_fragment_clouds(cfg), dev)]
+    frag_poses = gtb.gt_fragment_poses(ds.gt_poses, cfg.frames_per_fragment, len(clouds))
+    edges, infos = gtb.make_gt_edges(
+        clouds, frag_poses, max_distance=rcfg.inlier_threshold, capacity=cfg.corres_capacity_per_edge
+    )
+    gtb.write_gt_benchmark(out, edges, infos, len(clouds))
+    health = load_fragment_health(cfg, len(clouds))
+    suspects = [h["fragment"] for h in health if h.get("suspect", False)]
+    with open(out / "gt_benchmark_health.json", "w") as hf:
+        json.dump({"suspect_fragments": suspects, "num_fragments": len(clouds)}, hf, indent=2)
+    _log("evaluate", "gt benchmark", gt_edges=len(edges), suspect_fragments=len(suspects))
+
+
+def run_evaluate(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
+    """ATE of ``trajectory.log`` against the dataset's gt.log (``ate.json``),
+    and when ``loop.log`` exists, its precision/recall against the
+    ground-truth pair benchmark (``registration_pr.json``), made first if
+    absent. Loop proposals are scored before line-process pruning, as the
+    CVPR'15 protocol does."""
+    dev = resolve_device(device)
+    if ds.gt_poses is None:
+        raise ValueError(f"{ds.root}: the dataset has no gt.log")
+    est = io_logfmt.read_log(cfg.p_integrate() / "trajectory.log").matrices().astype(np.float32)
+    n = min(len(est), len(ds.gt_poses))
+    res = ate_mod.absolute_trajectory_error(torch.from_numpy(est[:n]).to(dev),
+                                            torch.from_numpy(ds.gt_poses[:n]).to(dev))
+    metrics = {
+        "ate_rmse": float(res.rmse),
+        "ate_mean": float(res.mean),
+        "ate_median": float(res.median),
+        "ate_max": float(res.max),
+        "frames": n,
+    }
+    with open(cfg.p_integrate() / "ate.json", "w") as f:
+        json.dump(metrics, f, indent=2)
+
+    reg = cfg.p_registration()
+    if (reg / "loop.log").exists():
+        if not (reg / "gt.log").exists():
+            run_make_gt_benchmark(ds, cfg, device=dev)
+        gt_edges, gt_infos = gtb.read_gt_benchmark(reg)
+        loop = io_logfmt.read_log(reg / "loop.log")
+        est_edges = [(e.i, e.j, e.transform) for e in loop.entries]
+        pr = prmod.precision_recall(est_edges, gt_edges, gt_infos)
+        with open(reg / "registration_pr.json", "w") as f:
+            json.dump(pr, f, indent=2)
+        metrics.update({"registration_precision": pr["precision"], "registration_recall": pr["recall"]})
+        _log("evaluate", "registration P/R", **pr)
+    _log("evaluate", "done", **metrics)
+    return metrics
+
+
+def run_all(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
+    """Every stage in order; the evaluation's metrics when the dataset has a gt.log."""
+    check_slac_mode(cfg)
+    run_fragments(ds, cfg, device=device)
+    run_registration(cfg, device=device)
+    run_posegraph(cfg, device=device)
+    run_optimize(cfg, device=device)
+    run_integrate(ds, cfg, device=device)
+    return run_evaluate(ds, cfg, device=device) if ds.gt_poses is not None else {}

@@ -45,6 +45,11 @@ def test_import_pulls_in_no_jax():
         "import elasticreconstruction_tpu_torch.synthetic.sdf, elasticreconstruction_tpu_torch.synthetic.scenes\n"
         "import elasticreconstruction_tpu_torch.synthetic.render, elasticreconstruction_tpu_torch.native.depth_png\n"
         "import elasticreconstruction_tpu_torch.pipeline.dataset, elasticreconstruction_tpu_torch.pipeline.stages\n"
+        "import elasticreconstruction_tpu_torch.integrate, elasticreconstruction_tpu_torch.integrate.blocks\n"
+        "import elasticreconstruction_tpu_torch.integrate.mesh, elasticreconstruction_tpu_torch.integrate.scene\n"
+        "import elasticreconstruction_tpu_torch.eval, elasticreconstruction_tpu_torch.eval.ate\n"
+        "import elasticreconstruction_tpu_torch.eval.gt_benchmark, elasticreconstruction_tpu_torch.eval.registration_pr\n"
+        "import elasticreconstruction_tpu_torch.elastic.correspondence\n"
         "import kernels_bench_gpu, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m == 'elasticreconstruction_tpu' or m.startswith('elasticreconstruction_tpu.')\n"
@@ -106,11 +111,14 @@ def test_stage_entry_points_default_to_the_card(tmp_path):
     from elasticreconstruction_tpu_torch.pipeline import PipelineConfig, run, stages
     from elasticreconstruction_tpu_torch.posegraph import EdgeList
 
+    from elasticreconstruction_tpu_torch.integrate import scene
     from elasticreconstruction_tpu_torch.kernels import tsdf
     from elasticreconstruction_tpu_torch.pipeline import dataset
 
     write_fragments_dir(tmp_path, 2, n=200)
     cfg = PipelineConfig(out_dir=str(tmp_path))
+    rigid = PipelineConfig(out_dir=str(tmp_path), slac_mode="none")
+    none = ["--slac-mode", "none"]
     (tmp_path / "data" / "depth").mkdir(parents=True)
     dataset.write_intrinsics(tmp_path / "data" / "intrinsics.json", run.synth_intrinsics("8x6"))
     for k in range(2):
@@ -124,6 +132,14 @@ def test_stage_entry_points_default_to_the_card(tmp_path):
         lambda: stages.run_fragments(dataset.Dataset(tmp_path / "data"), cfg),
         lambda: run.main(["fragments", "--data", str(tmp_path / "data"), "--out", str(tmp_path)]),
         lambda: run.main(["synth", "--data", str(tmp_path / "synth")]),
+        lambda: stages.run_optimize(rigid),
+        lambda: stages.run_integrate(dataset.Dataset(tmp_path / "data"), cfg),
+        lambda: stages.run_make_gt_benchmark(dataset.Dataset(tmp_path / "data"), cfg),
+        lambda: stages.run_evaluate(dataset.Dataset(tmp_path / "data"), cfg),
+        lambda: stages.run_all(dataset.Dataset(tmp_path / "data"), rigid),
+        *(lambda verb=verb: run.main([verb, "--data", str(tmp_path / "data"), "--out", str(tmp_path), *none])
+          for verb in ("optimize", "integrate", "evaluate", "all")),
+        lambda: scene.make_scene_volume(scene.SceneConfig(volume_shape=(4, 4, 4))),
         lambda: dataset.generate_synthetic(tmp_path / "synth", num_frames=2),
         lambda: tsdf.make_volume((4, 4, 4), 0.1, (0, 0, 0)),
         lambda: interop.volume_from_numpy(np.zeros((2, 2, 2)), np.zeros((2, 2, 2)), (0, 0, 0), 0.1, 0.4),
@@ -140,6 +156,7 @@ def test_stage_entry_points_default_to_the_card(tmp_path):
         kernels_bench_gpu.calibrate("cpu")
     assert not (tmp_path / "registration" / "odometry.log").exists()
     assert not (tmp_path / "fragments" / "local_0.log").exists() and not (tmp_path / "synth").exists()
+    assert not any((tmp_path / d).exists() for d in ("slac", "integrate", "corres"))
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():

@@ -216,7 +216,7 @@ def test_radius_gate_filters_pairs(runs, tmp_path):
 @pytest.mark.parametrize("preset,flags", [
     ("full", []), ("fast", []),
     ("full", ["--fragment-volume", "192", "--fragment-voxel", "0.02", "--scene-voxel", "0.01",
-              "--slac-mode", "none"]),
+              "--slac-mode", "none", "--spill-corres", "--spill-deformed"]),
     ("fast", ["--fragment-volume", "64", "--slac-mode", "rigid", "--num-frames", "30", "--depth-noise", "0.01",
               "--size", "320x240"]),
 ])
@@ -228,7 +228,7 @@ def test_cli_config_matches_jax(preset, flags):
     assert t_run.config_from_args(t_args) == want
     assert t_args.device == "cpu" and t_run.build_parser().parse_args(argv).device == "cuda"
     j_args = j_run.build_parser().parse_args(argv)
-    for name in ("num_frames", "depth_noise", "size", "slac_mode"):
+    for name in ("num_frames", "depth_noise", "size", "slac_mode", "spill_corres", "spill_deformed"):
         assert getattr(t_args, name) == getattr(j_args, name)
 
 
@@ -255,5 +255,6 @@ def test_cli_verbs_write_the_same_files_as_the_functions(tmp_path):
              "registration/loop.log", "registration/loop.info", "posegraph/pose.log", "posegraph/kept_edges.txt"]
     match, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
     assert sorted(match) == sorted(names), (mismatch, errors)
-    with pytest.raises(SystemExit):
-        t_run.main(["integrate", "--out", str(a)])
+    with pytest.raises(NotImplementedError, match="item 9"):  # the default --slac-mode, slac
+        t_run.main(["optimize", "--out", str(a), *argv])
+    assert not (a / "slac").exists()
