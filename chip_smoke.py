@@ -69,9 +69,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    99% of the vertices within 0.1 mm), and the per-frame fuse and
    ``extract_mesh`` are profiled at the scene's tile. One JSON line
    ``{"scene_path": ...}`` carries the numbers.
-9. The ``all`` verb on a fresh directory: 21 frames of the same orbit at the
-   ``fast`` preset, every artifact written, ATE under 3 cm.
-10. One JSON line of per-kernel numbers, then the last line
+9. Determinism, on the fragments path's ``fragments/``: ``register`` ->
+   ``posegraph`` -> ``optimize --slac-mode none`` -> ``integrate`` run twice
+   must write the same bytes, and ``prep_fragments_batch`` give the same bits
+   twice (``tools/repeat_check.py``).
+10. Elastic path, on the same directory (milestone config 4 cut as config 3
+   is): ``optimize`` in ``rigid``, ``slac`` and ``nonrigid``, each followed
+   by ``integrate`` and ``evaluate`` and timed with its peak memory; in every
+   mode ``rmse_after <= rmse_before``, ``pose_slac.log`` and the lattice files
+   read back finite, ATE under 2 cm, the mesh on the surface as in phase 8,
+   and ``optimize`` run again writes the same bytes; each mode's ``optimize``
+   launched ``nearest_batch`` at the harvest shape. Then config 4d (the
+   orbit rendered through an injected depth distortion, ``fragments`` ->
+   ``register`` -> ``posegraph``, ``optimize`` rigid and slac with its
+   settings, the learned lattice scored against the field) and config 4n
+   (the clouds through per-fragment warps, ``register`` -> ``posegraph`` ->
+   ``optimize`` rigid and nonrigid, surface error of the corrected clouds),
+   both gated on finite numbers only, each with its own launch counts
+   (paths ``distorted`` and ``warped``); ``optimize_fragments`` on the slac
+   path's correspondences on the card and on the CPU (``CARD_CPU_*``);
+   ``nearest_batch`` at a re-association query against its plain version;
+   and the optimiser at config 3's full length (``BIG_*``, 696 320 rows) in
+   slac and nonrigid mode, timed and profiled.
+11. The ``all`` verb on a fresh directory: 21 frames of the same orbit at the
+   ``fast`` preset, with ``--slac-mode none`` and at the default mode (slac),
+   every artifact written, ATE under 3 cm; then the default mode's
+   ``optimize`` on the CPU from the card's upstream, within
+   ``CARD_CPU_VERB_ATOL`` of the card's files.
+12. One JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
@@ -86,6 +111,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -158,6 +184,40 @@ ALL_ARTIFACTS = ("fragments/fragments.log", "registration/odometry.log", "regist
                  "integrate/ate.json", "registration/gt.log", "registration/gt.info",
                  "registration/registration_pr.json")
 CALIB_PARITY_SHAPE = (4096, 512)
+# Elastic path: milestone config 4 (milestones.py:315-324) on the fragments
+# path's directory, cut as config 3 is (3 fragments, full preset), in each mode.
+ELASTIC_MODES = ("rigid", "slac", "nonrigid")
+ELASTIC_ATE_M = SCENE_ATE_M
+# optimize_fragments on one correspondence set, the card against the CPU
+# (poses, displacements in m, final RMSE relative). The pose bound is the one
+# tests/test_torch_elastic_slac.py holds the port to against the JAX package;
+# the other two are tighter than that test's (1e-4 m; 5e-5 relative + 2 um),
+# since card and CPU run the same code with the same fixed-order segment sums
+# and differ only in the rounding of the torch ops, where the port and the
+# JAX package also sum in different orders.
+CARD_CPU_POSE_ATOL = 2e-4
+CARD_CPU_DISP_ATOL = 5e-5
+CARD_CPU_RMSE_RTOL = 1e-5
+# The optimize verb at the default mode, the card against the CPU from one
+# upstream (the harvest too): the tolerances of tests/test_torch_elastic_stage.py
+# on pose_slac.log and on ctr.txt (m) against the JAX package.
+CARD_CPU_VERB_ATOL = {"pose_slac.log": 5e-4, "ctr.txt": 2e-4}
+# Config 4d (milestones.py:327-411): the injected distortion and its settings.
+DIST_SEED = 42
+DIST_FIELD = dict(radial_a=0.015, depth_b=0.004, grid_sigma=0.006)
+DIST_SLAC = dict(disp_prior_weight=0.01, arap_weight=1.0, outer_iterations=8)
+DIST_PIPELINE = dict(corres_max_distance=0.07, corres_rounds=5, corres_distance_decay=0.7,
+                     corres_baseline_weight=4.0)
+# Config 4n (milestones.py:414-489): per-fragment warps and their settings.
+WARP_SEED = 1000
+WARP_AMPLITUDE_M = 0.03
+WARP_LATTICE = (8, 3.0, (-1.5, -1.5, 0.0))
+WARP_SLAC = dict(disp_prior_weight=0.003, arap_weight=1.0, outer_iterations=10)
+WARP_PIPELINE = dict(corres_max_distance=0.06, corres_rounds=3, corres_distance_decay=0.6,
+                     corres_reassoc_pair_transforms=True)
+# The optimiser at config 3's full length: 51 fragments, 170 edges x 4096 rows
+# = 696 320 correspondences (the production count elastic/slac.py cites).
+BIG_FRAGMENTS, BIG_EDGES, BIG_ROWS = 51, 170, 4096
 
 
 _T0 = time.perf_counter()
@@ -992,33 +1052,24 @@ def frame_op_times(vol, depth, pose, intr, cfg) -> dict:
 
 def syncs_per_frame(vol, depth, pose, intr, cfg) -> int:
     """Host synchronisations that one frame of the fragment loop (track + fuse) makes."""
-    import warnings
-
     from elasticreconstruction_tpu_torch.kernels import tsdf
     from elasticreconstruction_tpu_torch.odometry import kinfu
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            tr = kinfu.track_frame(vol, depth, pose, intr, cfg.odometry)
-            tsdf.fuse(vol, depth, tr.pose, intr, max_weight=cfg.max_weight, depth_min=cfg.depth_min,
-                      depth_max=cfg.depth_max)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    # Each warning names the Python line whose op synchronised.
-    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
-             if "called a synchronizing CUDA operation" in str(w.message)]
-    by_line = {line: syncs.count(line) for line in sorted(set(syncs))}
-    print(json.dumps({"host_syncs_one_frame": len(syncs), "by_line": by_line}))
-    return len(syncs)
+    def frame():
+        tr = kinfu.track_frame(vol, depth, pose, intr, cfg.odometry)
+        tsdf.fuse(vol, depth, tr.pose, intr, max_weight=cfg.max_weight, depth_min=cfg.depth_min,
+                  depth_max=cfg.depth_max)
+
+    syncs, by_line = count_host_syncs(frame)
+    print(json.dumps({"host_syncs_one_frame": syncs, "by_line": by_line}))
+    return syncs
 
 
-def fragments_path(dev, tmp: str, intr, num_frames: int, extra_argv=(), seed: int = 0) -> dict:
-    """Render the dataset on ``dev``, run the ``fragments``, ``register`` and
-    ``posegraph`` verbs there and hold their files to ground truth. Returns the
-    record with its ``faults`` (empty when every check passed)."""
+def fragments_path(dev, tmp: str, intr, num_frames: int, extra_argv=(), seed: int = 0, distortion=None) -> dict:
+    """Render the dataset on ``dev`` (through ``distortion`` if given), run the
+    ``fragments``, ``register`` and ``posegraph`` verbs there and hold their
+    files to ground truth. Returns the record with its ``faults`` (empty when
+    every check passed)."""
     from elasticreconstruction_tpu_torch.bench_scene import placement_error, pose_error
     from elasticreconstruction_tpu_torch.core import io_logfmt
     from elasticreconstruction_tpu_torch.pipeline import dataset, run
@@ -1031,7 +1082,8 @@ def fragments_path(dev, tmp: str, intr, num_frames: int, extra_argv=(), seed: in
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
     sync()
     t0 = time.perf_counter()
-    ds = dataset.generate_synthetic(data, num_frames=num_frames, intr=intr, seed=seed, device=dev, **FRAG_ORBIT)
+    ds = dataset.generate_synthetic(data, num_frames=num_frames, intr=intr, seed=seed, device=dev,
+                                    distortion=distortion, **FRAG_ORBIT)
     rec = {"frames": num_frames, "render_s": time.perf_counter() - t0}
     gt = ds.gt_poses.astype(np.float64)
     argv = ["--data", data, "--out", out, "--seed", str(seed), "--device", str(dev), *extra_argv]
@@ -1165,7 +1217,6 @@ def scene_path(dev, tmp: str, ds, extra_argv=(), seed: int = 0) -> dict:
     ``faults`` and the verbs' log records under ``"logs"``."""
     from elasticreconstruction_tpu_torch.core import io_logfmt
     from elasticreconstruction_tpu_torch.pipeline import run
-    from elasticreconstruction_tpu_torch.synthetic import scenes
 
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
     argv = ["--data", data, "--out", out, "--seed", str(seed), "--device", str(dev), "--slac-mode", "none",
@@ -1202,21 +1253,7 @@ def scene_path(dev, tmp: str, ds, extra_argv=(), seed: int = 0) -> dict:
     rec["ate"] = metrics
     if not metrics["ate_rmse"] < SCENE_ATE_M:
         faults.append(f"ate_rmse {metrics['ate_rmse']:.4f} m >= {SCENE_ATE_M}")
-    verts, faces = io_logfmt.read_ply_mesh(os.path.join(out, "integrate", "mesh.ply"))
-    if not (len(faces) > SCENE_MIN_FACES and np.isfinite(verts).all()):
-        faults.append(f"mesh.ply has {len(faces)} faces or non-finite vertices")
-    # Vertices in ground truth's frame, aligned at frame 0 as the cloud check
-    # aligns each fragment (the ATE alignment fits positions alone, which an
-    # arc of camera centres leaves free to turn).
-    align = torch.from_numpy((ds.gt_poses[0].astype(np.float64) @ np.linalg.inv(traj[0])).astype(np.float32))
-    v = torch.from_numpy(verts) @ align[:3, :3].T + align[:3, 3]
-    v = v.to(dev)
-    sdf = scenes.livingroom_scene()(v).abs()
-    rec["mesh_mean_abs_sdf_m"] = sdf.mean().item()
-    rec["mesh_share_within_2cm"] = (sdf < 0.02).float().mean().item()
-    if not (rec["mesh_mean_abs_sdf_m"] < SCENE_MESH_MEAN_M and rec["mesh_share_within_2cm"] >= SCENE_MESH_SHARE):
-        faults.append(f"mesh off the surface: mean |SDF| {rec['mesh_mean_abs_sdf_m']:.4f} m, "
-                      f"{rec['mesh_share_within_2cm']:.3f} of vertices within 2 cm")
+    faults += mesh_on_surface(dev, ds, out, rec)
     reg = os.path.join(out, "registration")
     if os.path.exists(os.path.join(reg, "loop.log")):
         if not os.path.exists(os.path.join(reg, "registration_pr.json")):
@@ -1226,6 +1263,33 @@ def scene_path(dev, tmp: str, ds, extra_argv=(), seed: int = 0) -> dict:
                 rec["registration_pr"] = json.load(f)
     rec.update(faults=faults, logs=logs)
     return rec
+
+
+def mesh_on_surface(dev, ds, out: str, rec: dict) -> list[str]:
+    """``mesh.ply`` under ``out`` held to the scene: more than ``SCENE_MIN_FACES``
+    finite faces, vertices on the surface (``SCENE_MESH_*``). Adds the numbers
+    to ``rec``; returns the faults."""
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.synthetic import scenes
+
+    faults = []
+    traj = io_logfmt.read_log(os.path.join(out, "integrate", "trajectory.log")).matrices()
+    verts, faces = io_logfmt.read_ply_mesh(os.path.join(out, "integrate", "mesh.ply"))
+    rec["faces"] = len(faces)
+    if not (len(faces) > SCENE_MIN_FACES and np.isfinite(verts).all()):
+        faults.append(f"mesh.ply has {len(faces)} faces or non-finite vertices")
+    # Vertices in ground truth's frame, aligned at frame 0 as the cloud check
+    # aligns each fragment (the ATE alignment fits positions alone, which an
+    # arc of camera centres leaves free to turn).
+    align = torch.from_numpy((ds.gt_poses[0].astype(np.float64) @ np.linalg.inv(traj[0])).astype(np.float32))
+    v = torch.from_numpy(verts) @ align[:3, :3].T + align[:3, 3]
+    sdf = scenes.livingroom_scene()(v.to(dev)).abs()
+    rec["mesh_mean_abs_sdf_m"] = sdf.mean().item()
+    rec["mesh_share_within_2cm"] = (sdf < 0.02).float().mean().item()
+    if not (rec["mesh_mean_abs_sdf_m"] < SCENE_MESH_MEAN_M and rec["mesh_share_within_2cm"] >= SCENE_MESH_SHARE):
+        faults.append(f"mesh off the surface: mean |SDF| {rec['mesh_mean_abs_sdf_m']:.4f} m, "
+                      f"{rec['mesh_share_within_2cm']:.3f} of vertices within 2 cm")
+    return faults
 
 
 def check_blocks(dev, tmp: str, ds, logs: dict, extra_argv=()) -> dict:
@@ -1337,31 +1401,516 @@ def phase_scene(tmp: str, frag: dict) -> dict:
     return rec
 
 
+def phase_determinism(tmp: str) -> dict:
+    """Two runs of ``register`` -> ``posegraph`` -> ``optimize --slac-mode none``
+    -> ``integrate`` from the fragments path's ``fragments/`` must write the same
+    bytes, and ``prep_fragments_batch`` must give the same bits twice
+    (``tools/repeat_check.py``)."""
+    from pathlib import Path
+
+    from elasticreconstruction_tpu_torch.tools import repeat_check
+
+    reset_launch_counts()
+    out = Path(tmp, "out")
+    rec = repeat_check.repeat(out, ["register", "posegraph", "optimize", "integrate"],
+                              ["--data", os.path.join(tmp, "data"), "--slac-mode", "none"], "cuda")
+    rec["launches"] = launch_counts()
+    print(json.dumps({"determinism": {k: v for k, v in rec.items() if k != "launches"}}))
+    if not (rec["identical"] and rec["prep_identical"]):
+        fail(f"two runs on the same fragments differ: {rec['differences']}, prep identical {rec['prep_identical']}")
+    for k in range(2):
+        shutil.rmtree(out / f"repeat_{k}")
+    return rec
+
+
+def copy_upstream(src_out: str, dst_out: str) -> None:
+    """The fragments, registration and pose-graph directories of one run, for another."""
+    for name in ("fragments", "registration", "posegraph"):
+        shutil.copytree(os.path.join(src_out, name), os.path.join(dst_out, name))
+
+
+def read_lattice_files(out: str, mode: str, nf: int) -> np.ndarray:
+    """``ctr.txt`` (rigid, slac) or ``ctr_<f>.txt`` (nonrigid) read back: ``(L, M, 3)`` positions."""
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+
+    names = [f"ctr_{f}.txt" for f in range(nf)] if mode == "nonrigid" else ["ctr.txt"]
+    return np.stack([io_logfmt.read_ctr(os.path.join(out, "slac", n))[0] for n in names])
+
+
+def elastic_mode(dev, ds, data: str, out: str, mode: str, extra_argv=()) -> dict:
+    """The ``optimize --slac-mode MODE``, ``integrate`` and ``evaluate`` verbs on
+    ``out``, each timed with its peak memory; ``optimize`` again on a copy of
+    the upstream, which must write the same bytes."""
+    from pathlib import Path
+
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.elastic.lattice import Lattice
+    from elasticreconstruction_tpu_torch.kernels.cuda import nn
+    from elasticreconstruction_tpu_torch.pipeline import run
+    from elasticreconstruction_tpu_torch.tools.repeat_check import first_difference
+
+    argv = ["--data", data, "--out", out, "--device", str(dev), "--slac-mode", mode, *extra_argv]
+    rec, logs, faults = {"mode": mode}, {}, []
+    for verb in ("optimize", "integrate", "evaluate"):
+        by_shape = dict(nn.launches_by_shape)
+        launched = nn.launches
+        synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logs[verb] = run_verb([verb, *argv])
+        synchronize(dev)
+        rec[verb + "_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            rec[verb + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if verb == "optimize":
+            rec["nearest_batch_launches"] = nn.launches - launched
+            rec["nearest_batch_shapes"] = {str(k): v - by_shape.get(k, 0) for k, v in nn.launches_by_shape.items()
+                                           if v > by_shape.get(k, 0)}
+    done = find_log(logs["optimize"], "optimize", "done")
+    rec.update({k: done[k] for k in ("rmse_before", "rmse_after", "correspondences", "edges", "rounds")},
+               harvest_ms_per_round=[1e3 * t for t in done["harvest_seconds"]],
+               optimizer_ms_per_round=[1e3 * t for t in done["optimize_seconds"]],
+               lattice_integrated=find_log(logs["integrate"], "integrate", "done")["lattice"])
+    with open(os.path.join(out, "integrate", "ate.json")) as f:
+        rec["ate_rmse"] = json.load(f)["ate_rmse"]
+    faults += mesh_on_surface(dev, ds, out, rec)
+    poses = io_logfmt.read_log(os.path.join(out, "slac", "pose_slac.log")).matrices()
+    ctr = read_lattice_files(out, mode, len(poses))
+    c = run.config_from_args(run.build_parser().parse_args(["optimize", *argv])).slac
+    rec["lattice_max_displacement_m"] = float(np.abs(ctr - Lattice(c.resolution, c.length, c.origin)
+                                                     .rest_positions().numpy()).max())
+    if not (np.isfinite(poses).all() and np.isfinite(ctr).all()):
+        faults.append("pose_slac.log or ctr*.txt holds non-finite values")
+    if not rec["rmse_after"] <= rec["rmse_before"]:
+        faults.append(f"rmse_after {rec['rmse_after']:.6f} > rmse_before {rec['rmse_before']:.6f}")
+    if not rec["ate_rmse"] < ELASTIC_ATE_M:
+        faults.append(f"ate_rmse {rec['ate_rmse']:.4f} m >= {ELASTIC_ATE_M}")
+    if mode != "rigid" and not rec["lattice_integrated"]:
+        faults.append("integrate did not take the lattice")
+    # optimize again from the same upstream: the same bytes.
+    again = out + "_again"
+    copy_upstream(out, again)
+    run_verb(["optimize", "--data", data, "--out", again, "--device", str(dev), "--slac-mode", mode, *extra_argv])
+    names = ["pose_slac.log"] + [os.path.basename(n) for n in sorted(Path(out, "slac").glob("ctr*.txt"))]
+    diffs = {n: d for n in names if (d := first_difference(Path(out, "slac", n), Path(again, "slac", n)))}
+    rec["optimize_repeats"] = not diffs
+    if diffs:
+        faults.append(f"optimize run twice wrote different files: {diffs}")
+    shutil.rmtree(again)
+    rec["faults"] = faults
+    return rec
+
+
+def card_against_cpu(dev, data: str, out: str, extra_argv=()) -> dict:
+    """``optimize_fragments`` in slac mode on the correspondences the harvest
+    makes on the card from ``out``'s upstream, on the card and on the CPU:
+    poses within ``CARD_CPU_POSE_ATOL``, displacements within
+    ``CARD_CPU_DISP_ATOL``, final RMSE within ``CARD_CPU_RMSE_RTOL``."""
+    from elasticreconstruction_tpu_torch.elastic import CorresSet, build_correspondences, optimize_fragments
+    from elasticreconstruction_tpu_torch.pipeline import run, stages
+
+    cfg = run.config_from_args(run.build_parser().parse_args(["optimize", "--data", data, "--out", out,
+                                                               *extra_argv]))
+    clouds, poses, edges, pair_T, edge_w = stages.load_harvest_inputs(cfg)
+    corres = build_correspondences(stages.clouds_to(clouds, dev), torch.from_numpy(poses).to(dev), edges,
+                                   max_distance=cfg.corres_max_distance,
+                                   capacity_per_edge=cfg.corres_capacity_per_edge, pair_transforms=pair_T,
+                                   edge_weights=edge_w)
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        c = CorresSet(*(None if x is None else x.to(d) for x in corres))
+        t0 = time.perf_counter()
+        r = optimize_fragments(torch.from_numpy(poses).to(d), c, cfg.slac_config(), num_fragments=len(clouds))
+        res[name] = [x.cpu() for x in (r.poses, r.displacement, r.final_rmse)]
+        res[name + "_s"] = time.perf_counter() - t0
+    (pg, dg, rg), (pc, dc, rc) = res["card"], res["cpu"]
+    rec = {"correspondences": int(corres.count()), "pose_max_abs_diff": float((pg - pc).abs().max()),
+           "displacement_max_abs_diff_m": float((dg - dc).abs().max()),
+           "final_rmse_rel_diff": float(abs(rg - rc) / rc), "card_s": res["card_s"], "cpu_s": res["cpu_s"],
+           "tolerance": [CARD_CPU_POSE_ATOL, CARD_CPU_DISP_ATOL, CARD_CPU_RMSE_RTOL]}
+    print(json.dumps({"optimize_fragments_card_vs_cpu": rec}))
+    if not (rec["pose_max_abs_diff"] <= CARD_CPU_POSE_ATOL and rec["displacement_max_abs_diff_m"] <= CARD_CPU_DISP_ATOL
+            and rec["final_rmse_rel_diff"] <= CARD_CPU_RMSE_RTOL):
+        fail(f"optimize_fragments on the card and on the CPU disagree: {rec}")
+    return rec
+
+
+def check_nearest_at_reassociation(dev, out: str, extra_argv=()) -> dict:
+    """``nearest_batch`` on a re-association query of the slac path: fragment 1's
+    cloud through the learned lattice, posed, against fragment 0's; the kernel
+    against its plain version on the first ``HARVEST_PLAIN_QUERIES`` queries,
+    indices equal and d2 within 1e-5."""
+    from elasticreconstruction_tpu_torch.core import io_logfmt, se3
+    from elasticreconstruction_tpu_torch.elastic.lattice import Lattice, deform
+    from elasticreconstruction_tpu_torch.kernels.cuda import nn
+    from elasticreconstruction_tpu_torch.pipeline import run, stages
+
+    cfg = run.config_from_args(run.build_parser().parse_args(["optimize", "--out", out, *extra_argv]))
+    clouds = stages.clouds_to(stages.load_fragment_clouds(cfg)[:2], dev)
+    poses = torch.from_numpy(io_logfmt.read_log(os.path.join(out, "slac", "pose_slac.log"))
+                             .matrices().astype(np.float32)).to(dev)
+    c = cfg.slac
+    lat = Lattice(c.resolution, c.length, c.origin)
+    disp = torch.from_numpy((read_lattice_files(out, "slac", 2)[0] - lat.rest_positions().numpy())
+                            .astype(np.float32)).to(dev)
+    q = se3.apply(poses[1], deform(lat, disp, clouds[1].points))[None]
+    r = se3.apply(poses[0], deform(lat, disp, clouds[0].points))[None]
+    m = clouds[0].mask[None]
+    k = HARVEST_PLAIN_QUERIES
+    d_k, i_k = nn.nearest_batch(q, r, m)
+    d_p, i_p = nn.nearest_batch_plain(q[:, :k], r, m)
+    rec = {"shape": list(q.shape[:2]) + [r.shape[1]], "index_mismatches": int((i_k[:, :k] != i_p).sum()),
+           "max_abs_d2_diff": float((d_k[:, :k] - d_p).abs().max())}
+    if dev.type == "cuda":
+        rec["ms"] = cuda_ms(lambda: nn.nearest_batch(q, r, m), reps=10)
+    print(json.dumps({"nearest_batch_at_reassociation": rec}))
+    if rec["index_mismatches"] or not rec["max_abs_d2_diff"] <= 1e-5:
+        fail(f"nearest_batch at the re-association shape: {rec}")
+    return rec
+
+
+def distorted_path(dev, tmp: str, intr=None, num_frames: int = FRAG_FRAMES, extra_argv=()) -> dict:
+    """Config 4d cut as the fragments path is: the orbit rendered through
+    ``make_distortion(DIST_SEED, **DIST_FIELD)``, ``fragments`` -> ``register``
+    -> ``posegraph``, then ``optimize`` rigid and slac with config 4d's
+    settings, each followed by ``integrate`` and ``evaluate``; the learned
+    lattice scored against the injected field. Gated on finite numbers only."""
+    import dataclasses
+
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
+    from elasticreconstruction_tpu_torch.elastic.lattice import Lattice
+    from elasticreconstruction_tpu_torch.eval.lattice_recovery import lattice_recovery
+    from elasticreconstruction_tpu_torch.pipeline import run, stages
+    from elasticreconstruction_tpu_torch.synthetic.distortion import make_distortion
+
+    root = os.path.join(tmp, "distorted")
+    dist = make_distortion(DIST_SEED, **DIST_FIELD)
+    frag = fragments_path(dev, root, intr or PRIMESENSE, num_frames, extra_argv, distortion=dist)
+    ds = frag.pop("dataset")
+    rec = {"fragments_s": frag["fragments_s"], "register_s": frag["register_s"], "posegraph_s": frag["posegraph_s"],
+           "fragments_path_faults": frag["faults"]}
+    base = run.config_from_args(run.build_parser().parse_args(
+        ["optimize", "--data", os.path.join(root, "data"), "--out", os.path.join(root, "out"), *extra_argv]))
+    cfg = dataclasses.replace(base, slac=base.slac._replace(**DIST_SLAC), **DIST_PIPELINE)
+    for mode in ("rigid", "slac"):
+        c = dataclasses.replace(cfg, slac_mode=mode)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        opt = stages.run_optimize(c, device=dev)
+        synchronize(dev)
+        t1 = time.perf_counter()
+        stages.run_integrate(ds, c, device=dev)
+        m = stages.run_evaluate(ds, c, device=dev)
+        rec[mode] = {"ate_rmse": m["ate_rmse"], "rmse_before": opt["rmse_before"], "rmse_after": opt["rmse_after"],
+                     "optimize_s": t1 - t0, "integrate_evaluate_s": time.perf_counter() - t1,
+                     "harvest_ms_per_round": [1e3 * t for t in opt["harvest_seconds"]]}
+    lat = Lattice(cfg.slac.resolution, cfg.slac.length, cfg.slac.origin)
+    pos, _, _ = io_logfmt.read_ctr(os.path.join(root, "out", "slac", "ctr.txt"))
+    disp = (pos - lat.rest_positions().numpy()).astype(np.float32)
+    clouds = stages.load_fragment_clouds(cfg)
+    got = lattice_recovery(lat, disp, clouds, dist, ds.intrinsics, device=dev)
+    zero = lattice_recovery(lat, np.zeros_like(disp), clouds, dist, ds.intrinsics, device=dev)
+    rec.update(lattice_recovery=got, recovery_vs_zero=1.0 - got["residual_rms_aligned"]
+               / max(zero["residual_rms_aligned"], 1e-12))
+    print(json.dumps({"distorted_path": rec}))
+    numbers = [rec[m][k] for m in ("rigid", "slac") for k in ("ate_rmse", "rmse_after")] + [rec["recovery_vs_zero"]]
+    if not np.isfinite(numbers).all():
+        fail(f"distorted path: non-finite numbers {numbers}")
+    return rec
+
+
+def fragment_pose_ate(dev, out: str, gt: np.ndarray, K: int) -> float:
+    """ATE of ``pose_slac.log`` against the ground-truth poses of the fragments' first frames."""
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.eval import ate
+
+    est = io_logfmt.read_log(os.path.join(out, "slac", "pose_slac.log")).matrices().astype(np.float32)
+    ref = gt[::K][: len(est)]
+    return float(ate.absolute_trajectory_error(torch.from_numpy(est[: len(ref)]).to(dev),
+                                               torch.from_numpy(ref).to(dev)).rmse)
+
+
+def corrected_cloud_error(dev, cfg, mode: str, gt: np.ndarray) -> dict:
+    """Surface error of the posed fragment clouds, through their learned lattices
+    in nonrigid mode, with the trajectory aligned to ground truth at fragment 0:
+    the shape, not the placement. (Config 4n aligns the fragment translations
+    by Kabsch, which three fragments on a 21 degree arc leave free to turn
+    about their chord.)"""
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.elastic.lattice import Lattice, deform
+    from elasticreconstruction_tpu_torch.eval.surface_error import surface_error
+    from elasticreconstruction_tpu_torch.pipeline import stages
+    from elasticreconstruction_tpu_torch.synthetic import scenes
+
+    slac_dir = os.path.join(cfg.out_dir, "slac")
+    poses = io_logfmt.read_log(os.path.join(slac_dir, "pose_slac.log")).matrices()
+    poses = np.einsum("ij,njk->nik", gt[0].astype(np.float64) @ np.linalg.inv(poses[0]), poses).astype(np.float32)
+    lat = Lattice(cfg.slac.resolution, cfg.slac.length, cfg.slac.origin)
+    rng = np.random.default_rng(0)
+    pts_w = []
+    for f, c in enumerate(stages.load_fragment_clouds(cfg)):
+        p = c.points[c.mask]
+        if len(p) > 20000:
+            p = p[rng.choice(len(p), 20000, replace=False)]
+        if mode == "nonrigid":
+            pos, _, _ = io_logfmt.read_ctr(os.path.join(slac_dir, f"ctr_{f}.txt"))
+            disp = torch.from_numpy((pos - lat.rest_positions().numpy()).astype(np.float32)).to(dev)
+            p = deform(lat, disp, torch.from_numpy(p).to(dev)).cpu().numpy()
+        pts_w.append(p @ poses[f][:3, :3].T + poses[f][:3, 3])
+    return surface_error(scenes.livingroom_scene(), np.concatenate(pts_w), device=dev)
+
+
+def nonrigid_path(dev, tmp: str, ds, extra_argv=()) -> dict:
+    """Config 4n cut as the fragments path is: its clouds through
+    ``make_fragment_warp(WARP_SEED + f, ...)`` into a new ``fragments/``, then
+    ``register`` -> ``posegraph`` -> ``optimize`` rigid and nonrigid with
+    config 4n's settings; surface error of the corrected clouds. Gated on
+    finite numbers only."""
+    import dataclasses
+
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.elastic.lattice import Lattice
+    from elasticreconstruction_tpu_torch.pipeline import run, stages
+    from elasticreconstruction_tpu_torch.synthetic.warps import make_fragment_warp, warp_points
+
+    src, root = os.path.join(tmp, "out", "fragments"), os.path.join(tmp, "warped")
+    dst = os.path.join(root, "fragments")
+    os.makedirs(dst)
+    lat = Lattice(*WARP_LATTICE)
+    f = 0
+    while os.path.exists(os.path.join(src, f"cloud_bin_{f}.pcd")):
+        pts, nrm = io_logfmt.read_pcd(os.path.join(src, f"cloud_bin_{f}.pcd"))
+        w = make_fragment_warp(WARP_SEED + f, lat, amplitude=WARP_AMPLITUDE_M)
+        warped = warp_points(lat, w, torch.from_numpy(pts.astype(np.float32)).to(dev)).cpu().numpy()
+        io_logfmt.write_pcd(os.path.join(dst, f"cloud_bin_{f}.pcd"), warped, nrm)
+        for name in (f"local_{f}.log", f"health_{f}.json"):
+            shutil.copy(os.path.join(src, name), dst)
+        f += 1
+    shutil.copy(os.path.join(src, "fragments.log"), dst)
+    base = run.config_from_args(run.build_parser().parse_args(["optimize", "--out", root, *extra_argv]))
+    cfg = dataclasses.replace(base, slac=base.slac._replace(**WARP_SLAC), **WARP_PIPELINE)
+    t0 = time.perf_counter()
+    stages.run_registration(cfg, device=dev)
+    stages.run_posegraph(cfg, device=dev)
+    rec = {"fragments": f, "register_posegraph_s": time.perf_counter() - t0}
+    for mode in ("rigid", "nonrigid"):
+        c = dataclasses.replace(cfg, slac_mode=mode)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        opt = stages.run_optimize(c, device=dev)
+        synchronize(dev)
+        err = corrected_cloud_error(dev, c, mode, ds.gt_poses)
+        rec[mode] = {"data_rmse": opt["rmse_after"], "optimize_s": time.perf_counter() - t0,
+                     "frag_ate_rmse": fragment_pose_ate(dev, root, ds.gt_poses, cfg.frames_per_fragment),
+                     "surface_rmse": err["rmse"], "surface_mean": err["mean"]}
+    rec["surface_improvement"] = rec["rigid"]["surface_rmse"] / max(rec["nonrigid"]["surface_rmse"], 1e-9)
+    print(json.dumps({"nonrigid_path": rec}))
+    numbers = [rec[m][k] for m in ("rigid", "nonrigid") for k in ("data_rmse", "surface_rmse", "frag_ate_rmse")]
+    if not np.isfinite(numbers).all():
+        fail(f"nonrigid path: non-finite numbers {numbers}")
+    return rec
+
+
+def large_problem(dev, seed: int = 0):
+    """A correspondence set of config 3's full length from a seed: ``BIG_EDGES``
+    edges of ``BIG_ROWS`` rows among ``BIG_FRAGMENTS`` fragments on one orbit,
+    points in both frustums with their (perturbed) partners and unit normals;
+    the poses it was drawn at, and starting poses 1 cm / 0.01 rad off them."""
+    from elasticreconstruction_tpu_torch.core import se3
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE as intr
+    from elasticreconstruction_tpu_torch.elastic import CorresSet
+    from elasticreconstruction_tpu_torch.synthetic.scenes import orbit_trajectory
+
+    rng = np.random.default_rng(seed)
+    nf, cap = BIG_FRAGMENTS, BIG_ROWS
+    gt = orbit_trajectory(nf, radius=1.1, height=1.3, sweep=2 * np.pi).astype(np.float64)
+    edges = [(f, f + d) for d in (1, 2, 3, 4) for f in range(nf - d)][:BIG_EDGES]
+    cols = {k: [] for k in ("fi", "fj", "p", "q", "n", "m")}
+    for i, j in edges:
+        z = rng.uniform(0.8, 2.8, cap)
+        p = np.stack([z * rng.uniform(-0.55, 0.55, cap), z * rng.uniform(-0.42, 0.42, cap), z], 1)
+        rel = np.linalg.inv(gt[j]) @ gt[i]
+        q = p @ rel[:3, :3].T + rel[:3, 3] + rng.normal(0, 0.002, (cap, 3))
+        n = rng.normal(size=(cap, 3))
+        u, v = q[:, 0] / q[:, 2] * intr.fx + intr.cx, q[:, 1] / q[:, 2] * intr.fy + intr.cy
+        ok = (q[:, 2] > 0.5) & (u >= 0) & (u < intr.width) & (v >= 0) & (v < intr.height)
+        for k, x in (("fi", np.full(cap, i)), ("fj", np.full(cap, j)), ("p", p), ("q", q),
+                     ("n", n / np.linalg.norm(n, axis=1, keepdims=True)), ("m", ok)):
+            cols[k].append(x)
+    c = {k: np.concatenate(v) for k, v in cols.items()}
+    f32 = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    i32 = lambda x: torch.from_numpy(x.astype(np.int32)).to(dev)  # noqa: E731
+    m = c["m"][:, None]
+    corres = CorresSet(i32(c["fi"]), i32(c["fj"]), f32(np.where(m, c["p"], 0.0)), f32(np.where(m, c["q"], 0.0)),
+                       torch.from_numpy(c["m"]).to(dev), f32(c["n"]), f32(np.ones(len(c["m"]))))
+    noise = torch.from_numpy(rng.normal(0, 0.01, (nf, 6)).astype(np.float32))
+    noise[0] = 0
+    init = (se3.exp(noise) @ torch.from_numpy(gt.astype(np.float32))).to(dev)
+    return init, corres
+
+
+def count_host_syncs(fn) -> tuple[int, dict]:
+    """Host synchronisations one call of ``fn`` makes, by the Python line that made them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return len(syncs), {line: syncs.count(line) for line in sorted(set(syncs))}
+
+
+def optimizer_at_scale(dev) -> dict:
+    """``optimize_fragments`` on :func:`large_problem` with ``SlacConfig()``'s
+    defaults (5 outer x 48 CG), in slac (L = 1) and nonrigid (L = 51) mode:
+    wall ms a solve and an outer step, ms and kernels a CG iteration (an outer
+    step with 48 CG iterations against one with none), host synchronisations
+    an outer step, peak memory and the device busy share of an outer step."""
+    from elasticreconstruction_tpu_torch.elastic import slac
+    from elasticreconstruction_tpu_torch.elastic.lattice import Lattice
+
+    init, corres = large_problem(dev)
+    out = {"rows": int(corres.mask.numel()), "valid_rows": int(corres.count()), "fragments": BIG_FRAGMENTS}
+    for mode in (slac.SlacMode.SLAC, slac.SlacMode.NONRIGID):
+        cfg = slac.SlacConfig(mode=mode)
+        slac.optimize_fragments(init, corres, cfg._replace(outer_iterations=1))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = slac.optimize_fragments(init, corres, cfg)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lat = Lattice(cfg.resolution, cfg.length, cfg.origin)
+        L = slac._num_lattices(mode, BIG_FRAGMENTS)
+        prob = slac._precompute(lat, corres, mode, BIG_FRAGMENTS)
+        state = slac.SlacState(init, torch.zeros((L, lat.num_vertices, 3), device=dev))
+
+        def step(cg):
+            return lambda: slac._gn_outer_step(state, corres, cfg._replace(cg_iterations=cg), BIG_FRAGMENTS, prob)
+
+        prof = {cg: device_profile(f"_gn_outer_step {mode.value} cg {cg}", step(cg), top=8) for cg in (48, 0)}
+        syncs, by_line = count_host_syncs(step(48))
+        rmse = res.data_rmse.cpu().numpy()
+        out[mode.value] = {
+            "lattices": L, "unknowns": 6 * BIG_FRAGMENTS + 3 * L * lat.num_vertices,
+            "solve_ms": solve_ms, "outer_step_wall_ms": prof[48]["wall_ms"],
+            "cg_iteration_wall_ms": (prof[48]["wall_ms"] - prof[0]["wall_ms"]) / 48,
+            "cg_iteration_busy_ms": (prof[48]["device_busy_ms"] - prof[0]["device_busy_ms"]) / 48
+            if prof[0]["kernels"] else "not measured",
+            "kernels_per_cg_iteration": (prof[48]["kernels"] - prof[0]["kernels"]) / 48,
+            "kernels_outside_cg": prof[0]["kernels"], "outer_step_busy_share": prof[48]["busy_share"],
+            "host_syncs_per_outer_step": syncs, "host_syncs_by_line": by_line, "peak_gib": peak,
+            "data_rmse": rmse.tolist(), "final_rmse": float(res.final_rmse)}
+        if not (np.isfinite(rmse).all() and torch.isfinite(res.poses).all() and torch.isfinite(res.displacement).all()):
+            fail(f"optimize_fragments at scale ({mode.value}): non-finite results")
+    print(json.dumps({"optimizer_at_scale": out}))
+    return out
+
+
+def phase_elastic(tmp: str, frag: dict) -> dict:
+    """The elastic path on the fragments path's directory: each ``--slac-mode``
+    through ``optimize`` -> ``integrate`` -> ``evaluate``, the card against the
+    CPU, ``nearest_batch`` at a re-association query; then the distorted and
+    the warped paths and the optimiser at production size. The launches of
+    the three modes, of the distorted path and of the warped path are counted
+    apart (``launches``, ``launches_distorted``, ``launches_warped``)."""
+    dev = torch.device("cuda")
+    ds = frag["dataset"]
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    harvest = str((1, HARVEST_CAPACITY, HARVEST_CAPACITY))
+    reset_launch_counts()
+    modes, faults = {}, []
+    for mode in ELASTIC_MODES:
+        mode_out = os.path.join(tmp, f"out_{mode}")
+        copy_upstream(out, mode_out)
+        modes[mode] = elastic_mode(dev, ds, data, mode_out, mode)
+        faults += [f"{mode}: {x}" for x in modes[mode].pop("faults")]
+        print(json.dumps({"elastic_mode": modes[mode]}))
+    rec = {"modes": modes, "launches": launch_counts()}
+    print(json.dumps({"elastic_path_launches_by_shape": launches_by_shape()}))
+    require_launched("elastic", rec["launches"], ["nearest_batch"])
+    for mode, m in modes.items():
+        if not m["nearest_batch_shapes"].get(harvest):
+            fail(f"elastic path: optimize --slac-mode {mode} launched nearest_batch at no harvest shape "
+                 f"{harvest}: {m['nearest_batch_shapes']}")
+    phase_done("elastic path: rigid, slac and nonrigid through optimize, integrate and evaluate")
+    for key, name, path in (("distorted", "distorted orbit (config 4d)", lambda: distorted_path(dev, tmp)),
+                            ("warped", "warped fragments (config 4n)", lambda: nonrigid_path(dev, tmp, ds))):
+        reset_launch_counts()
+        rec[key] = path()
+        rec["launches_" + key] = launch_counts()
+        print(json.dumps({key + "_path_launches_by_shape": launches_by_shape()}))
+        require_launched(key, rec["launches_" + key], ["nearest_batch"])
+        phase_done(f"elastic path: the {name}")
+    rec["card_vs_cpu"] = card_against_cpu(dev, data, os.path.join(tmp, "out_slac"))
+    rec["nearest_at_reassociation"] = check_nearest_at_reassociation(dev, os.path.join(tmp, "out_slac"))
+    rec["at_scale"] = optimizer_at_scale(dev)
+    phase_done("elastic path: card against CPU, re-association NN, the optimiser at scale")
+    if faults:
+        fail("elastic path: " + "; ".join(faults))
+    return rec
+
+
 def phase_all(seed: int = 0) -> dict:
     """The ``all`` verb on a fresh directory: ``ALL_FRAMES`` frames of the
-    fragments path's orbit at the ``fast`` preset, every artifact written,
-    ATE under ``ALL_ATE_M``."""
+    fragments path's orbit at the ``fast`` preset, with ``--slac-mode none``
+    and at the default mode (slac); every artifact written, ATE under
+    ``ALL_ATE_M``. Then ``optimize`` at the default mode on the CPU from the
+    card's upstream: ``pose_slac.log`` and ``ctr.txt`` within
+    ``CARD_CPU_VERB_ATOL`` of the card's."""
+    from elasticreconstruction_tpu_torch.core import io_logfmt
     from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
     from elasticreconstruction_tpu_torch.pipeline import dataset
 
     dev = torch.device("cuda")
+    rec, faults = {"frames": ALL_FRAMES}, []
     with tempfile.TemporaryDirectory() as tmp:
-        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        data = os.path.join(tmp, "data")
         dataset.generate_synthetic(data, num_frames=ALL_FRAMES, intr=PRIMESENSE, seed=seed, device=dev,
                                    **FRAG_ORBIT)
         reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logs = run_verb(["all", "--data", data, "--out", out, "--preset", "fast", "--frames-per-fragment", "10",
-                         "--slac-mode", "none", "--seed", str(seed)])
-        torch.cuda.synchronize()
-        rec = {"frames": ALL_FRAMES, "seconds": time.perf_counter() - t0, "launches": launch_counts()}
+        for mode in ("none", None):  # None: the CLI's default
+            out = os.path.join(tmp, f"out_{mode or 'default'}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = run_verb(["all", "--data", data, "--out", out, "--preset", "fast", "--frames-per-fragment", "10",
+                             "--seed", str(seed), *(["--slac-mode", mode] if mode else [])])
+            torch.cuda.synchronize()
+            r = {"seconds": time.perf_counter() - t0, "ate": find_log(logs, "evaluate", "done")}
+            names = ALL_ARTIFACTS + (() if mode else ("slac/ctr.txt",))
+            missing = [name for name in names if not os.path.exists(os.path.join(out, name))]
+            if missing or not r["ate"]["ate_rmse"] < ALL_ATE_M:
+                faults.append(f"the all verb (--slac-mode {mode or 'default'}): missing {missing}, "
+                              f"ate_rmse {r['ate']['ate_rmse']:.4f} m (limit {ALL_ATE_M})")
+            rec[f"slac_mode_{mode or 'default'}"] = r
+        rec["launches"] = launch_counts()
         require_launched("all", rec["launches"], ["nearest_batch"])
-        missing = [name for name in ALL_ARTIFACTS if not os.path.exists(os.path.join(out, name))]
-        rec["ate"] = find_log(logs, "evaluate", "done")
+        # The default mode's optimize on the CPU from the card's upstream.
+        out, cpu = os.path.join(tmp, "out_default"), os.path.join(tmp, "out_cpu")
+        copy_upstream(out, cpu)
+        t0 = time.perf_counter()
+        run_verb(["optimize", "--data", data, "--out", cpu, "--preset", "fast", "--frames-per-fragment", "10",
+                  "--device", "cpu"])
+        diffs = {"seconds": time.perf_counter() - t0}
+        for name in ("pose_slac.log", "ctr.txt"):
+            a, b = (io_logfmt.read_log(os.path.join(d, "slac", name)).matrices() if name.endswith(".log")
+                    else io_logfmt.read_ctr(os.path.join(d, "slac", name))[0] for d in (out, cpu))
+            diffs[name] = float(np.abs(a - b).max())
+            if not diffs[name] <= CARD_CPU_VERB_ATOL[name]:
+                faults.append(f"optimize on the card and on the CPU: {name} differs by {diffs[name]}")
+        rec["optimize_card_vs_cpu_max_abs_diff"] = diffs
     print(json.dumps({"all_verb": rec}))
-    if missing or not rec["ate"]["ate_rmse"] < ALL_ATE_M:
-        fail(f"the all verb: missing {missing}, ate_rmse {rec['ate']['ate_rmse']:.4f} m (limit {ALL_ATE_M})")
+    if faults:
+        fail("; ".join(faults))
     return rec
 
 
@@ -1439,6 +1988,12 @@ def main() -> int:
         phase_done("fragments path")
         by_path["scene"] = phase_scene(tmp, frag)["launches"]
         phase_done("scene path")
+        by_path["determinism"] = phase_determinism(tmp)["launches"]
+        phase_done("determinism: register, posegraph, optimize and integrate twice")
+        elastic = phase_elastic(tmp, frag)
+        for key in ("elastic", "distorted", "warped"):
+            by_path[key] = elastic["launches" if key == "elastic" else "launches_" + key]
+        phase_done("elastic path")
     by_path["all"] = phase_all()["launches"]
     phase_done("all verb")
 

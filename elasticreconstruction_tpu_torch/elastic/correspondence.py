@@ -9,8 +9,9 @@ order, up to a fixed capacity per edge. The edges concatenate into one flat
 
 Both nearest-neighbour queries go through ``kernels/cuda/nn.py::nearest``:
 CUDA tensors launch the hand-written ``nearest_batch`` kernel, CPU tensors run
-its plain version. Matching at the current lattice warp (the elastic modes'
-re-association) needs ``elastic/lattice.py``, which is not ported yet.
+its plain version. Given a lattice and its displacements, the points are
+warped before matching (re-association at the refined lattice, the ICCV'13
+alternation); the stored points stay the raw local ones.
 """
 
 from __future__ import annotations
@@ -23,11 +24,7 @@ import torch
 from ..core import se3
 from ..core.types import PointCloud, f32_square
 from ..kernels.cuda import nn as _nn
-
-_NO_LATTICE = (
-    "matching at a lattice warp needs elastic/lattice.py, which is not ported yet "
-    "(ROADMAP.md, Queue 1 item 9)"
-)
+from .lattice import deform
 
 
 class CorresSet(NamedTuple):
@@ -63,14 +60,16 @@ def correspondences_for_edge(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Mutually-nearest close pairs between two posed fragments.
 
-    Returns (p ``(capacity, 3)`` local-i, q ``(capacity, 3)`` local-j,
-    n ``(capacity, 3)`` normal at p in i-local, mask ``(capacity,)``), rows in
+    ``disp_i``/``disp_j``: (M, 3) displacements of ``lattice`` applied to the
+    local points before matching (None for plain rigid matching). Returns (p
+    ``(capacity, 3)`` local-i, q ``(capacity, 3)`` local-j, n ``(capacity, 3)``
+    normal at p in i-local, mask ``(capacity,)``), raw local points, rows in
     fragment j's order, zero past the matches.
     """
-    if disp_i is not None or disp_j is not None or lattice is not None:
-        raise NotImplementedError(_NO_LATTICE)
-    pi_w = se3.apply(T_i, cloud_i.points)
-    pj_w = se3.apply(T_j, cloud_j.points)
+    pi_l = cloud_i.points if disp_i is None else deform(lattice, disp_i, cloud_i.points)
+    pj_l = cloud_j.points if disp_j is None else deform(lattice, disp_j, cloud_j.points)
+    pi_w = se3.apply(T_i, pi_l)
+    pj_w = se3.apply(T_j, pj_l)
     d2, idx = _nn.nearest(pj_w, pi_w, cloud_i.mask)
     close = cloud_j.mask & torch.isfinite(d2) & (d2 < f32_square(max_distance))
     # Mutual check: j's match in i must match back to j.
@@ -112,12 +111,18 @@ def build_correspondences(
     optional ``(i, j) -> T_ij`` mapping j-local into i-local points, the
     pairwise-refined alignment the reference harvests at (edges missing from
     it match under the global poses). ``edge_weights``: optional
-    ``(i, j) -> float`` row weight, default 1.0. ``lattice``/``displacement``
-    (matching at a lattice warp) raise: ``elastic/lattice.py`` is not ported.
+    ``(i, j) -> float`` row weight, default 1.0. ``lattice`` + ``displacement``
+    ``(L, M, 3)`` + ``lattice_of_fragment`` ``(N,)`` ints: points are warped by
+    their fragment's lattice before matching.
     """
-    if lattice is not None or displacement is not None:
-        raise NotImplementedError(_NO_LATTICE)
     dev = poses.device
+
+    def disp_of(f: int):
+        if displacement is None:
+            return None
+        lof = 0 if lattice_of_fragment is None else int(lattice_of_fragment[f])
+        return torch.as_tensor(displacement[min(lof, displacement.shape[0] - 1)], device=dev)
+
     fi, fj, ps, qs, ns, ms, ws = [], [], [], [], [], [], []
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     for i, j in edge_pairs:
@@ -127,7 +132,8 @@ def build_correspondences(
         else:
             T_i, T_j = poses[i], poses[j]
         p, q, n, m = correspondences_for_edge(
-            clouds[i], clouds[j], T_i, T_j, max_distance=max_distance, capacity=capacity_per_edge
+            clouds[i], clouds[j], T_i, T_j, disp_i=disp_of(i), disp_j=disp_of(j), lattice=lattice,
+            max_distance=max_distance, capacity=capacity_per_edge,
         )
         fi.append(torch.full((capacity_per_edge,), i, dtype=torch.int32, device=dev))
         fj.append(torch.full((capacity_per_edge,), j, dtype=torch.int32, device=dev))

@@ -1,8 +1,9 @@
 """Carry pipeline state between the JAX package and this port as numpy arrays.
 
 The pipeline has no weights; its state is point clouds, prepped fragments and
-registration results, the TSDF volumes of fragment odometry and the scene, and
-harvested correspondences. These converters take the JAX package's containers (or
+registration results, the TSDF volumes of fragment odometry and the scene,
+harvested correspondences, control lattices and the optimiser's results, and
+the injected depth distortion. These converters take the JAX package's containers (or
 any object with the same field names) field by field through ``np.asarray``,
 so this module never imports the JAX package, and hand back the port's
 containers on a given device. ``RegistrationConfig`` and ``PGOConfig`` keep
@@ -21,7 +22,8 @@ import torch
 from .core.camera import Intrinsics
 from .core.types import PointCloud, resolve_device
 from .elastic.correspondence import CorresSet
-from .elastic.slac import SlacConfig, SlacMode
+from .elastic.lattice import Lattice
+from .elastic.slac import SlacConfig, SlacMode, SlacResult
 from .integrate.scene import SceneConfig
 from .kernels.tsdf import TSDFVolume
 from .odometry.fragments import FragmentConfig
@@ -29,6 +31,7 @@ from .odometry.kinfu import OdometryConfig
 from .pipeline.config import PipelineConfig
 from .posegraph.robust_pgo import EdgeList, PGOConfig
 from .registration.pair import PreppedFragments, RegistrationConfig
+from .synthetic.distortion import DepthDistortion
 
 
 def _tensor(x, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -124,3 +127,30 @@ def corres_to_numpy(corres) -> CorresSet:
     a ``CorresSet`` of numpy arrays; absent optional fields stay ``None``."""
     return CorresSet(*(None if x is None else (x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x))
                        for x in corres))
+
+
+def corres_from_numpy(corres, device="cuda") -> CorresSet:
+    """A correspondence set with the reference's field names -> the port's
+    ``CorresSet`` on ``device`` (int32 fragment ids, float32 points, bool mask)."""
+    dev = resolve_device(device)
+    dtypes = (torch.int32, torch.int32, torch.float32, torch.float32, torch.bool, torch.float32, torch.float32)
+    return CorresSet(*(None if x is None else _tensor(x, dev, dt) for x, dt in zip(corres, dtypes)))
+
+
+def lattice_from(lat) -> Lattice:
+    """A lattice with the reference's fields (``resolution``, ``length``, ``origin``) -> the port's."""
+    return Lattice(int(lat.resolution), float(lat.length), tuple(float(o) for o in lat.origin))
+
+
+def distortion_from(dist) -> DepthDistortion:
+    """A depth distortion with the reference's fields -> the port's (grid on the CPU)."""
+    return DepthDistortion(float(dist.radial_a), float(dist.depth_b), float(dist.depth_ref),
+                           torch.from_numpy(np.array(dist.grid, np.float32)))
+
+
+def slac_result_from(res, device="cuda") -> SlacResult:
+    """An optimiser result with the reference's fields -> the port's ``SlacResult``."""
+    dev = resolve_device(device)
+    return SlacResult(*(_tensor(x, dev, torch.float32) for x in (res.poses, res.displacement)),
+                      lattice_from(res.lattice),
+                      *(_tensor(x, dev, torch.float32) for x in (res.data_rmse, res.final_rmse)))

@@ -10,9 +10,10 @@ it (``icp_src_stride``), its coarse phase every fourth, and an over-capacity
 cloud keeps a prefix. So the key math reproduces the reference's uint32
 arithmetic exactly, in int64 with an explicit 30-bit mask (torch's uint32
 arithmetic is incomplete), and the sort is stable as ``jnp.argsort`` is.
-Segment sums use ``index_add_``; on the card that adds in atomic order, so
-the means may differ from the reference in the last bits while masks and
-order stay equal.
+The voxel sums reduce each run of the sorted rows in a fixed order
+(``core/segment.py``), so a cloud gives the same means on every run; they
+may differ from the reference's in the last bits while masks and order stay
+equal.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import segment
 from ..core.types import PointCloud
 
 _AXIS_BITS = 10
@@ -56,7 +58,6 @@ def voxel_downsample(cloud: PointCloud, voxel_size: float, capacity: int) -> Poi
     cloud's min corner are dropped.
     """
     points, normals, mask = cloud.points, cloud.normals, cloud.mask
-    dev = points.device
     origin = torch.where(mask[:, None], points, 1e30).amin(0)
     keys = voxel_keys(points, mask, voxel_size, origin)
     keys = torch.where(keys == _INVALID_KEY, keys, (keys * _HASH_MULT) & _KEY_MASK)
@@ -72,9 +73,10 @@ def voxel_downsample(cloud: PointCloud, voxel_size: float, capacity: int) -> Poi
     # Invalid rows and voxels past capacity go to the dropped row `capacity`.
     seg = torch.where(valid, seg.clamp_max(capacity), capacity)
 
+    runs = segment.plan_sorted(seg, capacity + 1)  # seg ascends with the sorted keys
+
     def segment_sum(x):
-        out = torch.zeros((capacity + 1,) + x.shape[1:], dtype=x.dtype, device=dev)
-        return out.index_add_(0, seg, x)[:capacity]
+        return segment.segment_sum(x, runs)[:capacity]
 
     psum = segment_sum(spts)
     nsum = segment_sum(snrm)

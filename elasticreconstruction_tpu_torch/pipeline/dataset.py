@@ -3,9 +3,8 @@
 Counterpart of ``elasticreconstruction_tpu/pipeline/dataset.py``: the
 augmented ICL-NUIM layout (16-bit depth PNGs in millimetres + ``gt.log`` +
 ``intrinsics.json``, or one ``stream.erts`` container) and the synthetic
-generator, which renders a procedural scene into that layout on ``device``.
-Depth distortion (``synthetic/distortion.py``) is not ported yet: a dataset's
-``distortion.json`` is kept as text and reading ``Dataset.distortion`` raises.
+generator, which renders a procedural scene into that layout on ``device``,
+optionally through an injected depth distortion (``distortion.json``).
 """
 
 from __future__ import annotations
@@ -21,9 +20,9 @@ from ..core import camera as cam
 from ..core import io_logfmt
 from ..core.types import resolve_device
 from ..native import depth_png
+from ..synthetic.distortion import DepthDistortion, apply_depth
 
 DEPTH_SCALE = 1000.0  # mm per meter (PrimeSense/ICL-NUIM convention)
-_NO_DISTORTION = "synthetic/distortion.py is not ported to the PyTorch package yet"
 
 
 def write_depth_png(path, depth_m: np.ndarray) -> None:
@@ -69,15 +68,7 @@ class Dataset:
         gt = self.root / "gt.log"
         self.gt_poses = io_logfmt.read_log(gt).matrices().astype(np.float32) if gt.exists() else None
         dp = self.root / "distortion.json"
-        self.distortion_json = dp.read_text() if dp.exists() else None
-
-    @property
-    def distortion(self):
-        """The injected depth distortion: None without ``distortion.json``;
-        with one, raises until ``synthetic/distortion.py`` is ported."""
-        if self.distortion_json is None:
-            return None
-        raise NotImplementedError(f"{self.root / 'distortion.json'}: {_NO_DISTORTION}")
+        self.distortion = DepthDistortion.from_json(dp.read_text()) if dp.exists() else None
 
     def __len__(self) -> int:
         if self.stream is not None:
@@ -117,13 +108,13 @@ def generate_synthetic(
     """Render a synthetic sequence on ``device`` to the reference dataset layout.
 
     The sensor noise takes the reference's numpy draws from ``seed``, chunk by
-    chunk of 16 frames. ``distortion`` must be None until
-    ``synthetic/distortion.py`` is ported.
+    chunk of 16 frames. ``distortion``: an optional ``DepthDistortion`` applied
+    to every rendered depth map before the sensor noise (the CVPR'14 SLAC input
+    regime), written to ``distortion.json`` so that a learned lattice can be
+    scored against it.
     """
     from ..synthetic import render, scenes
 
-    if distortion is not None:
-        raise NotImplementedError(f"generate_synthetic(distortion=...): {_NO_DISTORTION}")
     dev = resolve_device(device)
     if intr is None:
         intr = cam.Intrinsics(fx=160.0, fy=160.0, cx=79.5, cy=59.5, width=160, height=120)
@@ -156,7 +147,10 @@ def generate_synthetic(
     chunk = 16
     for s in range(0, num_frames, chunk):
         ps = torch.from_numpy(poses[s : s + chunk]).to(dev)
-        depths = render.render_batch(sdf_scene, ps, intr, max_depth=6.0).cpu().numpy()
+        depths = render.render_batch(sdf_scene, ps, intr, max_depth=6.0)
+        if distortion is not None:
+            depths = apply_depth(distortion, depths, intr)
+        depths = depths.cpu().numpy()
         if depth_noise > 0:
             noise = rng.normal(0, depth_noise, size=depths.shape).astype(np.float32)
             depths = np.where(depths > 0, np.maximum(depths + noise * depths, 0.05), 0.0)
@@ -164,4 +158,6 @@ def generate_synthetic(
             write_depth_png(root / "depth" / f"{s + k:06d}.png", depths[k])
     write_intrinsics(root / "intrinsics.json", intr)
     io_logfmt.write_log(root / "gt.log", io_logfmt.Trajectory.from_matrices(poses))
+    if distortion is not None:
+        (root / "distortion.json").write_text(distortion.to_json())
     return Dataset(root)

@@ -5,10 +5,9 @@ Counterpart of ``elasticreconstruction_tpu/pipeline/run.py``, with its verbs
 ``integrate``, ``evaluate`` and ``all``. Every stage resumes from the previous
 stage's file artifacts under ``--out`` (``synth`` writes the dataset under
 ``--data``). Stages run on ``--device`` (default ``cuda``, which raises if no
-card is present). ``optimize`` and ``all`` run only ``--slac-mode none`` (the
-elastic optimiser is not ported yet) and refuse any other mode before any
-stage runs; the CLI's default mode is ``slac``. The reference's
-``--profile`` (a ``jax.profiler`` trace) is not ported.
+card is present), in every ``--slac-mode`` (default ``slac``, as the
+reference's). The reference's ``--profile`` (a ``jax.profiler`` trace) is not
+ported.
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ from ..registration.pair import RegistrationConfig
 from .config import PipelineConfig
 from .dataset import Dataset, generate_synthetic
 from .stages import (
-    check_slac_mode,
     run_all,
     run_evaluate,
     run_fragments,
@@ -116,8 +114,6 @@ def main(argv=None) -> int:
         print(f"synthetic dataset written to {args.data}")
         return 0
     cfg = config_from_args(args)
-    if args.stage in ("optimize", "all"):
-        check_slac_mode(cfg)
     ds = Dataset(args.data) if args.stage in ("fragments", "integrate", "evaluate", "all") else None
     if args.stage == "fragments":
         run_fragments(ds, cfg, device=args.device)

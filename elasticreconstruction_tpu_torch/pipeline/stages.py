@@ -1,9 +1,9 @@
 """Stage functions: the reference executables as resumable functions.
 
-Counterpart of ``elasticreconstruction_tpu/pipeline/stages.py``: every stage
-of the rigid reconstruction (``slac_mode="none"``); the elastic modes of
-``optimize`` are still to port and raise. Artifact layout mirrors the
-reference contracts so every stage is re-runnable from files:
+Counterpart of ``elasticreconstruction_tpu/pipeline/stages.py``: every stage,
+in every ``slac_mode`` (``rigid``, ``slac``, ``nonrigid`` or ``none``).
+Artifact layout mirrors the reference contracts so every stage is re-runnable
+from files:
 
     out/fragments/cloud_bin_<f>.pcd      fragment clouds (local frame)
     out/fragments/local_<f>.log          per-frame camera-to-fragment poses
@@ -16,6 +16,8 @@ reference contracts so every stage is re-runnable from files:
     out/posegraph/kept_edges.txt         loop edges surviving the line process
     out/corres/corres_<i>_<j>.txt        harvested point pairs (--spill-corres)
     out/slac/pose_slac.log               refined fragment poses
+    out/slac/ctr.txt / ctr_<f>.txt       the learned control lattice(s)
+    out/slac/deformed_<f>.xyzn           lattice-warped clouds (--spill-deformed)
     out/integrate/mesh.ply               scene mesh
     out/integrate/trajectory.log         per-frame world poses
     out/integrate/ate.json               trajectory error against gt.log
@@ -40,12 +42,20 @@ import torch
 from ..core import io_logfmt, se3
 from ..core.types import PointCloud, resolve_device
 from ..elastic.correspondence import build_correspondences
+from ..elastic.lattice import Lattice, deform
+from ..elastic.slac import SlacMode, optimize_fragments
 from ..eval import ate as ate_mod
 from ..eval import gt_benchmark as gtb
 from ..eval import registration_pr as prmod
 from ..integrate import blocks as blocks_mod
 from ..integrate import mesh as mesh_mod
-from ..integrate.scene import SceneConfig, integrate_frames, integrate_frames_scatter
+from ..integrate.scene import (
+    SceneConfig,
+    integrate_frames,
+    integrate_frames_scatter,
+    integrate_frames_slac,
+    integrate_frames_slac_scatter,
+)
 from ..kernels import tsdf as tsdf_mod
 from ..kernels import voxel_grid
 from ..odometry import build_fragment
@@ -70,16 +80,6 @@ def _sync(dev: torch.device) -> None:
     """Wait for the device, so that a host clock read after it times the work."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def check_slac_mode(cfg: PipelineConfig) -> None:
-    """Raise unless ``cfg.slac_mode`` is one the port runs: ``"none"``."""
-    if cfg.slac_mode != "none":
-        raise NotImplementedError(
-            f"slac_mode {cfg.slac_mode!r} needs the elastic optimiser (elastic/lattice.py, "
-            "elastic/arap.py, elastic/slac.py::optimize_fragments), which is not ported yet "
-            "(ROADMAP.md, Queue 1 item 9); run with slac_mode 'none'"
-        )
 
 
 # ---------------------------------------------------------------- fragments
@@ -697,20 +697,11 @@ def run_posegraph(cfg: PipelineConfig, device="cuda") -> None:
 # ------------------------------------------------------- fragment optimizer
 
 
-def run_optimize(
-    cfg: PipelineConfig, *, spill_corres: bool = False, spill_deformed: bool = False, device="cuda"
-) -> dict:
-    """Correspondence harvest over the kept edges, then the fragment optimiser.
-
-    Only ``slac_mode="none"`` is ported: the harvest runs (and spills with
-    ``spill_corres``), the pose graph's poses pass through to
-    ``pose_slac.log``. Other modes raise before any work. ``spill_deformed``
-    dumps lattice-warped clouds, which mode ``none`` has none of.
-    """
-    check_slac_mode(cfg)
-    dev = resolve_device(device)
-    out = cfg.p_slac()
-    out.mkdir(parents=True, exist_ok=True)
+def load_harvest_inputs(cfg: PipelineConfig):
+    """What the harvest of ``run_optimize`` matches: the fragment clouds (numpy),
+    ``pose.log``'s poses, the edges (the odometry chain, then the loop edges the
+    pose graph kept), the pairwise registration transforms and the
+    viewpoint-baseline row weights (None when ``corres_baseline_weight`` is 0)."""
     clouds = load_fragment_clouds(cfg)
     poses = io_logfmt.read_log(cfg.p_posegraph() / "pose.log").matrices().astype(np.float32)
     edge_pairs = [(f, f + 1) for f in range(len(clouds) - 1)]
@@ -725,7 +716,6 @@ def run_optimize(
                 if (i, j) not in seen:
                     edge_pairs.append((i, j))
                     seen.add((i, j))
-    t0 = time.time()
 
     # The reference harvests at the pairwise-refined registration transforms,
     # not the global poses (BuildCorrespondence re-runs ICP per edge): matching
@@ -745,18 +735,58 @@ def run_optimize(
         for i, j in edge_pairs:
             cosang = float(np.dot(poses[i][:3, 2], poses[j][:3, 2]))
             edge_w[(i, j)] = 1.0 + cfg.corres_baseline_weight * (1.0 - cosang)
+    return clouds, poses, edge_pairs, pair_T, edge_w
 
-    corres = build_correspondences(
-        clouds_to(clouds, dev),
-        torch.from_numpy(poses).to(dev),
-        edge_pairs,
-        max_distance=cfg.corres_max_distance,
-        capacity_per_edge=cfg.corres_capacity_per_edge,
-        pair_transforms=pair_T,
-        edge_weights=edge_w,
-    )
+
+def run_optimize(
+    cfg: PipelineConfig, *, spill_corres: bool = False, spill_deformed: bool = False, device="cuda"
+) -> dict:
+    """Correspondence harvest over the kept edges, then the fragment optimiser.
+
+    ``slac_mode="none"`` passes the pose graph's poses through to
+    ``pose_slac.log`` after the harvest. The other modes run
+    ``optimize_fragments`` ``cfg.corres_rounds`` times, re-harvesting between
+    rounds at the refined poses and lattice with a radius shrinking by
+    ``corres_distance_decay``, and write ``pose_slac.log`` and ``ctr.txt``
+    (``ctr_<f>.txt`` per fragment in nonrigid mode); ``spill_deformed`` also
+    writes each fragment cloud through its lattice warp. ``spill_corres``
+    writes the first round's point pairs.
+    """
+    dev = resolve_device(device)
+    out = cfg.p_slac()
+    out.mkdir(parents=True, exist_ok=True)
+    clouds, poses, edge_pairs, pair_T, edge_w = load_harvest_inputs(cfg)
+    t0 = time.time()
+    scfg = cfg.slac_config() if cfg.slac_mode != "none" else None
+    lat = None if scfg is None else Lattice(scfg.resolution, scfg.length, scfg.origin)
+    lof = list(range(len(clouds))) if scfg is not None and scfg.mode is SlacMode.NONRIGID else None
+    clouds_dev = clouds_to(clouds, dev)
+    harvest_s = []
+
+    def harvest(cur_poses: torch.Tensor, displacement=None, max_distance=None):
+        """Round 1 matches under the pairwise ICP alignments; later rounds at the
+        refined global poses and the current warp, or under the pairwise
+        alignments again with ``corres_reassoc_pair_transforms``."""
+        _sync(dev)
+        t = time.time()
+        corres = build_correspondences(
+            clouds_dev,
+            cur_poses,
+            edge_pairs,
+            max_distance=cfg.corres_max_distance if max_distance is None else max_distance,
+            capacity_per_edge=cfg.corres_capacity_per_edge,
+            pair_transforms=pair_T if displacement is None or cfg.corres_reassoc_pair_transforms else None,
+            edge_weights=edge_w,
+            lattice=None if displacement is None else lat,
+            displacement=displacement,
+            lattice_of_fragment=lof,
+        )
+        _sync(dev)
+        harvest_s.append(time.time() - t)
+        return corres
+
+    corres = harvest(torch.from_numpy(poses).to(dev))
     count = int(corres.count())
-    harvest_s = time.time() - t0
     if spill_corres:
         cdir = Path(cfg.out_dir) / "corres"
         cdir.mkdir(parents=True, exist_ok=True)
@@ -768,11 +798,70 @@ def run_optimize(
             # Spill as point pairs (the array-native analog of index pairs).
             pq = np.concatenate([p_all[rows][m], q_all[rows][m]], axis=1)
             np.savetxt(cdir / f"corres_{i}_{j}.txt", pq, fmt="%.6f")
-    _log("optimize", "correspondences", count=count, edges=len(edge_pairs), seconds=harvest_s)
+    _log("optimize", "correspondences", count=count, edges=len(edge_pairs), seconds=harvest_s[0])
 
-    io_logfmt.write_log(out / "pose_slac.log", io_logfmt.Trajectory.from_matrices(poses))
-    _log("optimize", "skipped (mode=none)")
-    return {"mode": "none", "correspondences": count, "edges": len(edge_pairs), "harvest_seconds": harvest_s}
+    if scfg is None:
+        io_logfmt.write_log(out / "pose_slac.log", io_logfmt.Trajectory.from_matrices(poses))
+        _log("optimize", "skipped (mode=none)")
+        return {"mode": "none", "correspondences": count, "edges": len(edge_pairs), "harvest_seconds": harvest_s[0]}
+
+    def round_scfg(r: int):
+        """Per-round config: ARAP annealing (PipelineConfig.arap_anneal)."""
+        if cfg.arap_anneal == 1.0:
+            return scfg
+        return scfg._replace(arap_weight=scfg.arap_weight * cfg.arap_anneal ** (cfg.corres_rounds - 1 - r))
+
+    opt_s = []
+
+    def optimize(r: int, init_poses, corres, init_displacement=None):
+        _sync(dev)
+        t = time.time()
+        res = optimize_fragments(init_poses, corres, round_scfg(r), num_fragments=len(clouds),
+                                 init_displacement=init_displacement)
+        _sync(dev)
+        opt_s.append(time.time() - t)
+        return res
+
+    res = optimize(0, torch.from_numpy(poses).to(dev), corres)
+    for r in range(1, cfg.corres_rounds):
+        # Re-associate at the refined state (points warped by the refined
+        # lattice before the mutual-NN pass) at a tightening radius, and
+        # continue from it: the ICCV'13 alternation.
+        md = cfg.corres_max_distance * cfg.corres_distance_decay**r
+        corres = harvest(res.poses, displacement=res.displacement, max_distance=md)
+        res = optimize(r, res.poses, corres, init_displacement=res.displacement)
+        _log("optimize", "alternation round", round=r + 1, corres=int(corres.count()), rmse=float(res.final_rmse))
+    io_logfmt.write_log(out / "pose_slac.log",
+                        io_logfmt.Trajectory.from_matrices(res.poses.cpu().numpy().astype(np.float64)))
+    rest = res.lattice.rest_positions().numpy()
+    disp = res.displacement.cpu().numpy()
+    if scfg.mode is SlacMode.NONRIGID:
+        for f in range(disp.shape[0]):
+            io_logfmt.write_ctr(out / f"ctr_{f}.txt", rest + disp[f], scfg.resolution, scfg.length)
+    else:
+        io_logfmt.write_ctr(out / "ctr.txt", rest + disp[0], scfg.resolution, scfg.length)
+    if spill_deformed:
+        # Each fragment cloud through its lattice warp, fragment-local; the
+        # normals are carried over unwarped (the warp is near-rigid at lattice
+        # scale), as the reference's dump does.
+        for f, c in enumerate(clouds_dev):
+            m = c.mask.cpu().numpy()
+            d = res.displacement[f if scfg.mode is SlacMode.NONRIGID else 0]
+            warped = deform(res.lattice, d, c.points).cpu().numpy()
+            io_logfmt.write_xyzn(out / f"deformed_{f}.xyzn", warped[m], c.normals.cpu().numpy()[m])
+    stats = dict(
+        mode=cfg.slac_mode,
+        rmse_before=float(res.data_rmse[0]),  # of the last round, as the reference reports it
+        rmse_after=float(res.final_rmse),
+        seconds=round(time.time() - t0, 2),
+        correspondences=count,
+        edges=len(edge_pairs),
+        rounds=cfg.corres_rounds,
+        harvest_seconds=harvest_s,
+        optimize_seconds=opt_s,
+    )
+    _log("optimize", "done", **stats)
+    return stats
 
 
 # ------------------------------------------------------------------ integrate
@@ -822,15 +911,7 @@ def run_integrate(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
     dev = resolve_device(device)
     out = cfg.p_integrate()
     out.mkdir(parents=True, exist_ok=True)
-    slac_dir = cfg.p_slac()
-    if cfg.slac_mode in ("slac", "nonrigid") and (
-        (slac_dir / "ctr.txt").exists() or (slac_dir / "ctr_0.txt").exists()
-    ):
-        raise NotImplementedError(
-            f"{slac_dir}: integrating through a control lattice (ctr*.txt) needs elastic/lattice.py, "
-            "which is not ported yet (ROADMAP.md, Queue 1 item 9)"
-        )
-    frame_poses, fidx, _, bases = _frame_world_poses(cfg)
+    frame_poses, fidx, local_poses, bases = _frame_world_poses(cfg)
     n = min(len(ds), len(frame_poses))
     intr = ds.intrinsics
 
@@ -852,8 +933,35 @@ def run_integrate(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
     scfg = SceneConfig(volume_shape=plan.tile_shape, voxel_size=cfg.scene_voxel_size, origin=tuple(lo))
     _log("integrate", "volume plan", wanted=list(want), tile=list(plan.tile_shape),
          blocks=len(plan.blocks), origin=[round(v, 3) for v in lo])
-    fuse = integrate_frames_scatter if cfg.scene_use_scatter else integrate_frames
-    poses_dev = torch.from_numpy(frame_poses[:n]).to(dev)
+    # Lattice correction when the optimiser learned one: the fragment's
+    # lattice warps every frame of it.
+    slac_dir = cfg.p_slac()
+    use_lattice = cfg.slac_mode in ("slac", "nonrigid") and (
+        (slac_dir / "ctr.txt").exists() or (slac_dir / "ctr_0.txt").exists()
+    )
+    if use_lattice:
+        scfg_s = cfg.slac_config()
+        lat = Lattice(scfg_s.resolution, scfg_s.length, scfg_s.origin)
+        rest = lat.rest_positions().numpy()
+        if (slac_dir / "ctr.txt").exists():
+            pos, _, _ = io_logfmt.read_ctr(slac_dir / "ctr.txt")
+            disp_per_frag = np.tile((pos - rest)[None], (len(bases), 1, 1)).astype(np.float32)
+        else:
+            disp_per_frag = np.stack([io_logfmt.read_ctr(slac_dir / f"ctr_{f}.txt")[0] - rest
+                                      for f in range(len(bases))]).astype(np.float32)
+        fuse_slac = integrate_frames_slac_scatter if cfg.scene_use_scatter else integrate_frames_slac
+        frame_args = [torch.from_numpy(x).to(dev) for x in (
+            bases[fidx[:n]], local_poses[:n], disp_per_frag[fidx[:n]])]
+
+        def fuse(vol, depths, s, intr, scfg):
+            k = slice(s, s + len(depths))
+            return fuse_slac(vol, depths, *(x[k] for x in frame_args), lat, intr, scfg)
+    else:
+        fuse_rigid = integrate_frames_scatter if cfg.scene_use_scatter else integrate_frames
+        poses_dev = torch.from_numpy(frame_poses[:n]).to(dev)
+
+        def fuse(vol, depths, s, intr, scfg):
+            return fuse_rigid(vol, depths, poses_dev[s : s + len(depths)], intr, scfg)
 
     chunk = 16
     multi = len(plan.blocks) > 1
@@ -876,7 +984,7 @@ def run_integrate(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
         for a, b in _contiguous_runs(idxs):
             for s in range(a, b, chunk):
                 depths = torch.from_numpy(ds.depth_chunk(s, min(chunk, b - s))).to(dev)
-                vol = fuse(vol, depths, poses_dev[s : s + len(depths)], intr, scfg)
+                vol = fuse(vol, depths, s, intr, scfg)
         frames_fused += len(idxs)
         _sync(dev)
         t1 = time.time()
@@ -903,6 +1011,7 @@ def run_integrate(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
     io_logfmt.write_ply_mesh(out / "mesh.ply", v, f)
     io_logfmt.write_log(out / "trajectory.log", io_logfmt.Trajectory.from_matrices(frame_poses[:n].astype(np.float64)))
     stats = dict(vertices=len(v), faces=len(f), frames=n, frame_fusions=frames_fused, blocks=len(plan.blocks),
+                 lattice=use_lattice,
                  wanted=list(want), tile=list(plan.tile_shape), fuse_seconds=fuse_s, extract_seconds=extract_s,
                  weld_seconds=weld_s, write_seconds=time.time() - t0 - weld_s)
     _log("integrate", "done", **stats)
@@ -980,7 +1089,6 @@ def run_evaluate(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
 
 def run_all(ds: Dataset, cfg: PipelineConfig, device="cuda") -> dict:
     """Every stage in order; the evaluation's metrics when the dataset has a gt.log."""
-    check_slac_mode(cfg)
     run_fragments(ds, cfg, device=device)
     run_registration(cfg, device=device)
     run_posegraph(cfg, device=device)

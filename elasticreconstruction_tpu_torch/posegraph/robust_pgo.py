@@ -22,7 +22,8 @@ Design notes:
   turns into 0 * inf.
 - Gauge freedom is fixed by a strong prior on pose 0 (1e8, in float32) instead
   of variable elimination.
-- The scatter into H is one ``index_add_`` over flattened block ids.
+- The scatter into H is one segment sum over flattened block ids, in a fixed
+  order (``core/segment.py``), so the card solves the same system every run.
 - The alternation scans are Python loops; everything runs on the device of
   ``poses``.
 """
@@ -34,7 +35,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jvp
 
-from ..core import se3
+from ..core import se3, segment
 from ..core.types import resolve_device
 
 
@@ -149,11 +150,9 @@ def _gn_step(poses, edges: EdgeList, weights, cfg: PGOConfig):
         [edges.i * n + edges.i, edges.i * n + edges.j, edges.j * n + edges.i, edges.j * n + edges.j]
     )
     vals = torch.cat([Hii, Hij, Hij.transpose(-1, -2), Hjj], dim=0)
-    Hblocks = torch.zeros((n * n, 6, 6), dtype=vals.dtype, device=vals.device).index_add_(0, blk, vals)
+    Hblocks = segment.segment_sum_by_keys(vals, blk, n * n)
     H = Hblocks.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
-    b = torch.zeros((n, 6), dtype=vals.dtype, device=vals.device).index_add_(
-        0, torch.cat([edges.i, edges.j]), torch.cat([bi, bj], dim=0)
-    ).reshape(6 * n)
+    b = segment.segment_sum_by_keys(torch.cat([bi, bj], dim=0), torch.cat([edges.i, edges.j]), n).reshape(6 * n)
 
     # Gauge anchor on pose 0 + LM damping.
     anchor = torch.zeros(6 * n, dtype=H.dtype, device=H.device)

@@ -38,6 +38,7 @@ from elasticreconstruction_tpu_torch.bench_scene import make_fragments
 from elasticreconstruction_tpu_torch.core import io_logfmt as t_io
 from elasticreconstruction_tpu_torch.core.types import PointCloud
 from elasticreconstruction_tpu_torch.elastic import correspondence as t_corr
+from elasticreconstruction_tpu_torch.elastic.lattice import Lattice
 from elasticreconstruction_tpu_torch.eval import ate as t_ate
 from elasticreconstruction_tpu_torch.eval import gt_benchmark as t_gtb
 from elasticreconstruction_tpu_torch.eval import registration_pr as t_pr
@@ -257,15 +258,23 @@ def test_build_correspondences_matches_jax(capacity):
 
 
 def test_harvest_pads_small_clouds_and_refuses_a_lattice():
+    """The harvest pads a small cloud's rows to ``capacity``; a lattice at rest
+    is accepted and warps nothing: it changes no match (the name is kept
+    from when the rigid harvest refused any lattice)."""
     pts, nrm, mask, poses, _ = _harvest_inputs()
     c = [PointCloud(*map(torch.from_numpy, x)) for x in zip(pts, nrm, mask)]
     T = torch.from_numpy(poses)
     p, q, n, m = t_corr.correspondences_for_edge(c[0], c[1], T[0], T[1], capacity=4000)
     assert p.shape == (4000, 3) and m.shape == (4000,) and not m[1700:].any() and m.sum() > 150
-    with pytest.raises(NotImplementedError, match="lattice"):
-        t_corr.correspondences_for_edge(c[0], c[1], T[0], T[1], disp_i=torch.zeros(8, 3))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_corr.build_correspondences(c, T, [(0, 1)], lattice=object(), displacement=np.zeros((1, 8, 3)))
+    # A lattice at rest warps nothing: the same matches as without one.
+    lat = Lattice(8, 3.0, (-1.5, -1.5, 0.0))
+    rest = t_corr.correspondences_for_edge(c[0], c[1], T[0], T[1], capacity=4000, lattice=lat,
+                                           disp_i=torch.zeros(729, 3), disp_j=torch.zeros(729, 3))
+    for x, y in zip(rest, (p, q, n, m)):
+        assert torch.equal(x, y)
+    at_rest = t_corr.build_correspondences(c, T, [(0, 1)], lattice=lat, displacement=np.zeros((1, 729, 3), np.float32))
+    rigid = t_corr.build_correspondences(c, T, [(0, 1)])
+    assert all(torch.equal(x, y) for x, y in zip(at_rest, rigid))
     empty = t_corr.build_correspondences(c, T, [])
     assert empty.p.shape == (0, 3) and int(empty.count()) == 0
 

@@ -172,8 +172,6 @@ def test_cli_verbs_write_what_the_functions_write(tmp_path):
              (("cloud_bin", "pcd"), ("local", "log"), ("health", "json"))] + ["fragments/fragments.log"]
     match, mismatch, errors = filecmp.cmpfiles(tmp_path / "out_cli", tmp_path / "out_fn", names, shallow=False)
     assert sorted(match) == sorted(names), (mismatch, errors)
-    # The CLI's default --slac-mode (slac) is not ported: refused before any stage runs.
-    for verb in ("optimize", "all"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t_run.main([verb, "--data", str(tmp_path / "cli"), "--out", str(tmp_path / "unported"), *argv])
-    assert not (tmp_path / "unported").exists()
+    # The CLI's default --slac-mode is the reference's, slac, and the port runs it.
+    cfg = t_run.config_from_args(t_run.build_parser().parse_args(["all", "--out", str(tmp_path / "x"), *argv]))
+    assert cfg.slac_mode == "slac" and cfg.slac_config().mode.value == "slac"

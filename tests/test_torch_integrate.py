@@ -35,6 +35,7 @@ from elasticreconstruction_tpu.kernels import tsdf as j_tsdf
 from elasticreconstruction_tpu.synthetic import render as j_render
 from elasticreconstruction_tpu.synthetic import sdf as j_sdf
 from elasticreconstruction_tpu_torch import interop
+from elasticreconstruction_tpu_torch.elastic.lattice import Lattice
 from elasticreconstruction_tpu_torch.integrate import blocks as t_blocks
 from elasticreconstruction_tpu_torch.integrate import mesh as t_mesh
 from elasticreconstruction_tpu_torch.integrate import scene as t_scene
@@ -100,9 +101,18 @@ def test_scene_helpers_match_jax():
     assert t_scene.SceneConfig() == interop.scene_config_from(j_scene.SceneConfig())
     vol = t_scene.make_scene_volume(t_scene.SceneConfig(volume_shape=(4, 5, 6)), device="cpu")
     assert vol.shape == (4, 5, 6) and vol.truncation == pytest.approx(4 * 0.012)
-    for fn in (t_scene.integrate_frames_slac, t_scene.integrate_frames_slac_scatter):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(vol, None, None, None, None, None, T_INTR)
+    # Through a lattice at rest, with the identity as fragment pose, the
+    # lattice-corrected fuses give the rigid ones' weights.
+    lat = Lattice(2, 4.0, (-2.0, -2.0, 0.0))
+    vol = t_scene.make_scene_volume(t_scene.SceneConfig(volume_shape=(8, 8, 8), voxel_size=0.05,
+                                                        origin=(-0.2, -0.2, 0.9)), device="cpu")
+    depth = torch.full((1, 60, 80), 1.1)
+    eye = torch.eye(4)[None]
+    for slac_fn, rigid_fn in ((t_scene.integrate_frames_slac, t_scene.integrate_frames),
+                              (t_scene.integrate_frames_slac_scatter, t_scene.integrate_frames_scatter)):
+        a = slac_fn(vol, depth, eye, eye, torch.zeros(1, lat.num_vertices, 3), lat, T_INTR)
+        b = rigid_fn(vol, depth, eye, T_INTR)
+        assert torch.equal(a.weight, b.weight) and a.weight.sum() > 0
 
 
 def _as_sets(tris):

@@ -49,7 +49,11 @@ def test_import_pulls_in_no_jax():
         "import elasticreconstruction_tpu_torch.integrate.mesh, elasticreconstruction_tpu_torch.integrate.scene\n"
         "import elasticreconstruction_tpu_torch.eval, elasticreconstruction_tpu_torch.eval.ate\n"
         "import elasticreconstruction_tpu_torch.eval.gt_benchmark, elasticreconstruction_tpu_torch.eval.registration_pr\n"
-        "import elasticreconstruction_tpu_torch.elastic.correspondence\n"
+        "import elasticreconstruction_tpu_torch.elastic.correspondence, elasticreconstruction_tpu_torch.elastic.lattice\n"
+        "import elasticreconstruction_tpu_torch.elastic.arap, elasticreconstruction_tpu_torch.elastic.slac\n"
+        "import elasticreconstruction_tpu_torch.synthetic.distortion, elasticreconstruction_tpu_torch.synthetic.warps\n"
+        "import elasticreconstruction_tpu_torch.eval.lattice_recovery, elasticreconstruction_tpu_torch.eval.surface_error\n"
+        "import elasticreconstruction_tpu_torch.core.segment, elasticreconstruction_tpu_torch.tools.repeat_check\n"
         "import kernels_bench_gpu, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m == 'elasticreconstruction_tpu' or m.startswith('elasticreconstruction_tpu.')\n"
@@ -111,9 +115,15 @@ def test_stage_entry_points_default_to_the_card(tmp_path):
     from elasticreconstruction_tpu_torch.pipeline import PipelineConfig, run, stages
     from elasticreconstruction_tpu_torch.posegraph import EdgeList
 
+    from elasticreconstruction_tpu_torch.core.types import PointCloud
+    from elasticreconstruction_tpu_torch.elastic.lattice import Lattice
+    from elasticreconstruction_tpu_torch.eval.lattice_recovery import lattice_recovery
+    from elasticreconstruction_tpu_torch.eval.surface_error import surface_error
     from elasticreconstruction_tpu_torch.integrate import scene
     from elasticreconstruction_tpu_torch.kernels import tsdf
     from elasticreconstruction_tpu_torch.pipeline import dataset
+    from elasticreconstruction_tpu_torch.synthetic import scenes
+    from elasticreconstruction_tpu_torch.synthetic.distortion import make_distortion
 
     write_fragments_dir(tmp_path, 2, n=200)
     cfg = PipelineConfig(out_dir=str(tmp_path))
@@ -149,6 +159,10 @@ def test_stage_entry_points_default_to_the_card(tmp_path):
         lambda: kernels_bench_gpu.calibrate(),
         lambda: kernels_bench_gpu.bench_kernels({}, {"nn"}),
         lambda: kernels_bench_gpu.main(["--section", "calibrate"]),
+        lambda: surface_error(scenes.livingroom_scene(), np.full((4, 3), 0.5, np.float32)),
+        lambda: lattice_recovery(Lattice(2, 1.0, (0.0, 0.0, 0.0)), np.zeros((27, 3), np.float32),
+                                 [PointCloud(np.full((4, 3), 0.5, np.float32), np.zeros((4, 3), np.float32),
+                                             np.ones(4, bool))], make_distortion(0), run.synth_intrinsics("8x6")),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()

@@ -18,7 +18,10 @@ One dataset written by the JAX ``generate_synthetic`` (the one of
   bytes as those function calls (``--spill-corres`` too);
 - the port's ``all`` verb on the dataset writes every artifact, and its ATE
   is within max(2 mm, 10%) of the JAX run's;
-- ``optimize`` and ``all`` refuse every other ``--slac-mode`` before any
+- the ``optimize`` verb in each of ``rigid``, ``slac`` and ``nonrigid`` writes
+  ``pose_slac.log`` and the mode's lattice files from the JAX upstream (the
+  elastic modes against the JAX package: ``tests/test_torch_elastic_stage.py``),
+  and ``optimize`` and ``all`` refuse a mode the CLI does not know before any
   stage runs.
 """
 
@@ -155,16 +158,21 @@ def test_all_verb_lands_on_the_jax_ate(root):
 
 
 @pytest.mark.parametrize("mode", ["rigid", "slac", "nonrigid"])
-def test_unported_modes_fail_before_any_stage(tmp_path, mode):
+def test_unported_modes_fail_before_any_stage(root, tmp_path, mode):
+    """A mode the CLI does not know is refused before any stage runs; every
+    --slac-mode it knows runs: the optimize verb in this mode writes
+    pose_slac.log and its lattice files from the JAX upstream (the name is
+    kept from when the lattice modes were refused too)."""
+    for name in UPSTREAM:
+        shutil.copytree(root / "jax" / name, tmp_path / "out" / name, ignore=shutil.ignore_patterns(*EVALUATION))
+    argv = ["--out", str(tmp_path / "out"), *FLAGS[:-2], "--slac-mode", mode, "--device", "cpu"]
+    assert t_run.main(["optimize", *argv]) == 0
+    poses = t_io.read_log(tmp_path / "out" / "slac" / "pose_slac.log").matrices()
+    assert poses.shape == (2, 4, 4) and np.isfinite(poses).all()
+    names = ["ctr_0.txt", "ctr_1.txt"] if mode == "nonrigid" else ["ctr.txt"]
+    assert sorted(p.name for p in (tmp_path / "out" / "slac").glob("ctr*.txt")) == names
     for verb in ("optimize", "all"):
-        argv = [verb, "--data", str(tmp_path / "data"), "--out", str(tmp_path / "out"), "--slac-mode", mode,
-                "--device", "cpu"]
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t_run.main(argv)
-    assert not (tmp_path / "out").exists()
-    cfg = t_run.config_from_args(t_run.build_parser().parse_args(argv))
-    with pytest.raises(NotImplementedError, match="elastic"):
-        t_stages.run_optimize(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="elastic"):
-        t_stages.run_all(None, cfg, device="cpu")
-    assert not (tmp_path / "out").exists()
+        with pytest.raises(SystemExit):
+            t_run.main([verb, "--data", str(tmp_path / "data"), "--out", str(tmp_path / "other"),
+                        "--slac-mode", "elastic", "--device", "cpu"])
+    assert not (tmp_path / "other").exists()

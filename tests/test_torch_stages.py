@@ -255,6 +255,8 @@ def test_cli_verbs_write_the_same_files_as_the_functions(tmp_path):
              "registration/loop.log", "registration/loop.info", "posegraph/pose.log", "posegraph/kept_edges.txt"]
     match, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
     assert sorted(match) == sorted(names), (mismatch, errors)
-    with pytest.raises(NotImplementedError, match="item 9"):  # the default --slac-mode, slac
-        t_run.main(["optimize", "--out", str(a), *argv])
-    assert not (a / "slac").exists()
+    # The default --slac-mode, slac: the pose-graph poses refined, the lattice written.
+    assert t_run.main(["optimize", "--out", str(a), *argv]) == 0
+    refined = t_io.read_log(a / "slac" / "pose_slac.log").matrices()
+    assert refined.shape == (4, 4, 4) and np.isfinite(refined).all()
+    assert (a / "slac" / "ctr.txt").exists()

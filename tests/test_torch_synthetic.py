@@ -35,6 +35,7 @@ from elasticreconstruction_tpu_torch import interop
 from elasticreconstruction_tpu_torch.core import stream as t_stream
 from elasticreconstruction_tpu_torch.native import depth_png
 from elasticreconstruction_tpu_torch.pipeline import dataset as t_dataset
+from elasticreconstruction_tpu_torch.synthetic import distortion as t_distortion
 from elasticreconstruction_tpu_torch.synthetic import render as t_render
 from elasticreconstruction_tpu_torch.synthetic import scenes as t_scenes
 from elasticreconstruction_tpu_torch.synthetic import sdf as t_sdf
@@ -277,7 +278,7 @@ def test_generate_synthetic_matches_jax(datasets):
     a, b = td.depth_chunk(0, 18), jd.depth_chunk(0, 18)
     assert a.shape == (18, 45, 60)
     assert (a != b).mean() <= 1e-3 and np.abs(a - b).max() <= 1e-3 + 1e-6  # tolerance: 0.1% / 1 mm
-    assert td.distortion is None and td.distortion_json is None
+    assert td.distortion is None and jd.distortion is None
 
 
 def test_dataset_layouts(datasets, tmp_path):
@@ -294,13 +295,11 @@ def test_dataset_layouts(datasets, tmp_path):
     np.testing.assert_array_equal(sd.depth_chunk(0, 18), td.depth_chunk(0, 18))
     jd = j_dataset.Dataset(tmp_path / "ds")
     np.testing.assert_array_equal(jd.depth_chunk(0, 18), sd.depth_chunk(0, 18))
-    # distortion.json is kept as text; reading the field raises until the module is ported.
-    (tmp_path / "ds" / "distortion.json").write_text(json.dumps({"kind": "any"}))
-    dd = t_dataset.Dataset(tmp_path / "ds")
-    assert dd.distortion_json == json.dumps({"kind": "any"})
-    with pytest.raises(NotImplementedError, match="distortion"):
-        dd.distortion
-    with pytest.raises(NotImplementedError, match="distortion"):
+    # distortion.json is read into a DepthDistortion.
+    dist = t_distortion.make_distortion(3)
+    (tmp_path / "ds" / "distortion.json").write_text(dist.to_json())
+    assert t_dataset.Dataset(tmp_path / "ds").distortion.to_json() == dist.to_json()
+    with pytest.raises(AttributeError):
         t_dataset.generate_synthetic(tmp_path / "x", num_frames=1, distortion=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         t_dataset.generate_synthetic(tmp_path / "y", num_frames=1, scene="garden", device="cpu")
