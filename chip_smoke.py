@@ -11,8 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    plus CUDA-event times of the kernel, the plain version and, where there is
    one, a library yardstick. The two pipeline kernels are held at every shape
-   the paths launch them at (``NN_SHAPES``, ``ICP_SHAPES``, with a partly
-   masked ref set) and at ragged ones: sizes that are multiples of nothing,
+   the paths launch them at (``NN_SHAPES``, ``ICP_SHAPES``, ``DIST_NN_SHAPES``,
+   with a partly masked ref set) and at ragged ones: sizes that are multiples of nothing,
    fewer refs than one chunk, one batch, refs all masked (which must give
    (3e38, 0)) and duplicated refs (the first index must win). Every call is
    made twice and must give the same bits. Their compiled main loop's opcode
@@ -69,11 +69,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    99% of the vertices within 0.1 mm), and the per-frame fuse and
    ``extract_mesh`` are profiled at the scene's tile. One JSON line
    ``{"scene_path": ...}`` carries the numbers.
-9. Determinism, on the fragments path's ``fragments/``: ``register`` ->
+9. Distributed paths (``dist/``) at full width, each against the
+   single-device path on the same inputs: pair sharding on the ``bench.py``
+   workload (one batch of 16 pairs, again with ``fused_step=True``, and 4
+   pairs prepped inline), the ring over its 6 fragments padded to 8, the
+   edge-sharded pose graph on the stage path's 24-fragment graph, the
+   correspondence-sharded PCG at 696 320 rows in slac and nonrigid mode, and
+   the scene path's 240 x 155 x 106 block x-sharded over 16 frames (both
+   fuses), then meshed. At world size 1 (NCCL, in this process) every result
+   must equal the single-device one bit for bit; at 2 (gloo, two processes
+   sharing the card; NCCL cannot put two ranks on one card) within the bounds
+   of ``SHARD_*``, the ring's lanes bit-equal to the same lanes batched as it
+   ran them, and a second run must give the same bits; one rank a card under
+   NCCL where there are two cards or more. Walls, peak memory a rank, the
+   kernels' launches by shape and the collectives gloo staged through host
+   memory are printed a run.
+10. Determinism, on the fragments path's ``fragments/``: ``register`` ->
    ``posegraph`` -> ``optimize --slac-mode none`` -> ``integrate`` run twice
    must write the same bytes, and ``prep_fragments_batch`` give the same bits
    twice (``tools/repeat_check.py``).
-10. Elastic path, on the same directory (milestone config 4 cut as config 3
+11. Elastic path, on the same directory (milestone config 4 cut as config 3
    is): ``optimize`` in ``rigid``, ``slac`` and ``nonrigid``, each followed
    by ``integrate`` and ``evaluate`` and timed with its peak memory; in every
    mode ``rmse_after <= rmse_before``, ``pose_slac.log`` and the lattice files
@@ -91,12 +106,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nearest_batch`` at a re-association query against its plain version;
    and the optimiser at config 3's full length (``BIG_*``, 696 320 rows) in
    slac and nonrigid mode, timed and profiled.
-11. The ``all`` verb on a fresh directory: 21 frames of the same orbit at the
+12. The ``all`` verb on a fresh directory: 21 frames of the same orbit at the
    ``fast`` preset, with ``--slac-mode none`` and at the default mode (slac),
    every artifact written, ATE under 3 cm; then the default mode's
    ``optimize`` on the CPU from the card's upstream, within
    ``CARD_CPU_VERB_ATOL`` of the card's files.
-12. One JSON line of per-kernel numbers, then the last line
+13. One JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
@@ -219,6 +234,30 @@ WARP_PIPELINE = dict(corres_max_distance=0.06, corres_rounds=3, corres_distance_
 # = 696 320 correspondences (the production count elastic/slac.py cites).
 BIG_FRAGMENTS, BIG_EDGES, BIG_ROWS = 51, 170, 4096
 
+# The distributed phase (``dist/``): every path at full width at world size 1
+# (NCCL, in this process), 2 (gloo, two processes sharing cuda:0; NCCL cannot
+# put two ranks on one card), twice, and one rank a card under NCCL where
+# there are two cards or more; each against the single-device path.
+SHARD_PAIRS = 16  # one batch of the bench.py workload's pairs
+SHARD_INLINE_PAIRS = 4  # register_pairs_sharded preps its clouds inline
+SHARD_RING_INDEX = (0, 1, 2, 3, 4, 5, 0, 1)  # the 6 fragments padded to 8 by repeats
+SHARD_RING_BASE = 7
+SHARD_FRAMES = 16
+SHARD_T_ATOL, SHARD_INFO_RTOL, SHARD_INFO_ATOL = 1e-5, 1e-4, 1e-2  # tests/test_ring.py:92-97
+# The ring's lanes against the replicated enumeration, a batch of other
+# pairs: ICP's batch-wide early exit keeps a converged lane stepping (each
+# step under 1e-5) until the last lane of its batch converges, so a lane's
+# transform moves with its batch by up to 1e-5 a step, (12 + 30) steps, and
+# its information matrix with it: held as two runs whose ICP stops differ are
+# (tests/test_torch_slice.py), within 1e-3 of the matrix's largest entry. The
+# ring's lanes against the same lanes batched as it ran them: bit for bit.
+SHARD_RING_REPLICATED_T_ATOL = 1e-5 * (12 + 30)
+SHARD_RING_REPLICATED_INFO_REL = 1e-3
+SHARD_PGO_ATOL = 1e-3  # tests/test_dist.py:91-96
+SHARD_SLAC_POSE_ATOL, SHARD_SLAC_RMSE_ATOL = 5e-3, 2e-3  # tests/test_dist.py:128-133
+SHARD_TSDF_ATOL = 1e-6  # tests/test_dist.py:146-151
+SHARD_TIMEOUT_S = 300.0
+
 
 _T0 = time.perf_counter()
 
@@ -327,6 +366,11 @@ def phase_build() -> None:
 # path's 8-pair batches. The first of each list is the one the kernels line reports.
 NN_SHAPES = [(16, 4096, 8192), (16, 1024, 8192), (16, 8192, 8192), (8, 1024, 8192), (8, 4096, 8192)]
 ICP_SHAPES = [(16, 4096, 8192), (16, 1024, 8192), (8, 1024, 8192), (8, 4096, 8192)]
+# The dist path's other batches: the ring's 64 lanes at world size 1, the
+# information query of the 8-pair shards, the 4 pairs prepped inline (2 a
+# rank at world size 2); its 16-lane ring steps are among the shapes above.
+DIST_NN_SHAPES = [(64, 4096, 8192), (64, 1024, 8192), (64, 8192, 8192), (8, 8192, 8192), (4, 4096, 8192),
+                  (4, 1024, 8192), (4, 8192, 8192), (2, 4096, 8192), (2, 1024, 8192), (2, 8192, 8192)]
 # The correspondence harvest's query: fragment clouds padded to the full
 # preset's capacity, about as full as config 3's (54-61k points, PERF.md).
 HARVEST_CAPACITY = 1 << 17
@@ -586,6 +630,7 @@ def phase_kernel_parity() -> dict:
     rng = np.random.default_rng(1)
     print_main_loops()
     nn_by_shape = [check_nearest(*nn_inputs(rng, *shape, dev), time_plain=True) for shape in NN_SHAPES]
+    nn_by_shape += [check_nearest(*nn_inputs(rng, *shape, dev)) for shape in DIST_NN_SHAPES]
     nn_by_shape.append(check_nearest_at_harvest_shape(rng, dev))
     icp_by_shape = [check_normal_eqs(icp_inputs(rng, *shape, dev), time_plain=True) for shape in ICP_SHAPES]
     for shape in RAGGED_SHAPES:
@@ -908,6 +953,23 @@ def profile_where_time_goes(out: dict, cfg, batch: int) -> None:
                                                       fused_step=fused, device=dev))
 
 
+def posegraph_inputs(out: str) -> dict:
+    """The pose graph the ``posegraph`` verb builds from ``out``'s registration
+    files (odometry edges, then loop edges; no suspect edges), as numpy arrays
+    with the initial poses of ``fragments.log``."""
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+
+    reg = os.path.join(out, "registration")
+    odo, loop = (io_logfmt.read_log(os.path.join(reg, f"{k}.log")).entries for k in ("odometry", "loop"))
+    info = [e.info for k in ("odometry", "loop") for e in io_logfmt.read_info(os.path.join(reg, f"{k}.info")).entries]
+    edges = list(odo) + list(loop)
+    return {"i": np.array([e.i for e in edges]), "j": np.array([e.j for e in edges]),
+            "transform": np.stack([e.transform for e in edges]).astype(np.float32),
+            "information": np.stack(info).astype(np.float32),
+            "is_odometry": np.array([True] * len(odo) + [False] * len(loop)),
+            "init": io_logfmt.read_log(os.path.join(out, "fragments", "fragments.log")).matrices().astype(np.float32)}
+
+
 def phase_stages(num_frag: int = 24, n: int = 20000, seed: int = 0) -> dict:
     """The stage path: fragment artifacts -> ``register`` -> ``posegraph``, as a user runs them."""
     import dataclasses
@@ -947,6 +1009,7 @@ def phase_stages(num_frag: int = 24, n: int = 20000, seed: int = 0) -> dict:
         stages.run_posegraph(dataclasses.replace(cfg, posegraph=cfg.posegraph._replace(
             inner_iterations=CONVERGED_INNER_ITERATIONS)), device="cuda")
         pose_converged = io_logfmt.read_log(os.path.join(pg, "pose.log")).matrices()
+        graph = posegraph_inputs(tmp)
         # The stage under the profiler, for its device-busy share (a second run of the verb).
         device_profile("register verb", lambda: run.main(["register", "--out", tmp, "--seed", str(seed)]),
                        warm=False)
@@ -1013,6 +1076,7 @@ def phase_stages(num_frag: int = 24, n: int = 20000, seed: int = 0) -> dict:
     print(json.dumps({"stages": out}))
     if faults:
         fail("stage path: " + "; ".join(faults))
+    out["graph"] = graph
     return out
 
 
@@ -1393,6 +1457,7 @@ def phase_scene(tmp: str, frag: dict) -> dict:
     require_launched("scene", rec["launches"], ["nearest_batch"])
     phase_done("scene path: optimize, integrate and evaluate verbs")
     faults, logs = rec.pop("faults"), rec.pop("logs")
+    rec["volume_plan"] = find_log(logs["integrate"], "integrate", "volume plan")
     rec["profile"] = scene_profile(dev, ds, os.path.join(tmp, "out"), logs)
     rec["blocks_check"] = check_blocks(dev, tmp, ds, logs)
     print(json.dumps({"scene_path": rec}))
@@ -1914,6 +1979,386 @@ def phase_all(seed: int = 0) -> dict:
     return rec
 
 
+def shard_inputs(tmp: str, frag: dict, scene: dict, graph: dict) -> dict:
+    """The distributed phase's inputs, on the host: the ``bench.py`` workload
+    (6 fragments of 20 000 points, prepped on the card) with one batch of
+    ``SHARD_PAIRS`` pairs and their RANSAC draws; the stage path's 24-fragment
+    pose graph; :func:`large_problem`'s 696 320 rows; the scene path's volume
+    block with its first ``SHARD_FRAMES`` frames and poses."""
+    from elasticreconstruction_tpu_torch.bench_scene import make_fragments
+    from elasticreconstruction_tpu_torch.core import io_logfmt
+    from elasticreconstruction_tpu_torch.pipeline import run
+    from elasticreconstruction_tpu_torch.registration import RegistrationConfig, prep_fragments_batch, ransac
+
+    cfg = RegistrationConfig()
+    clouds, _ = make_fragments(6, n=20000, seed=0)
+    prepped = prep_fragments_batch(clouds, cfg, device="cuda")
+    pairs = [(i, j) for i in range(6) for j in range(i + 1, 6)]
+    pairs = (pairs * 2)[:SHARD_PAIRS]
+    init, corres = large_problem(torch.device("cpu"))
+    ds = frag["dataset"]
+    plan = scene["volume_plan"]
+    scfg = run.config_from_args(run.build_parser().parse_args(["integrate"]))
+    poses = io_logfmt.read_log(os.path.join(tmp, "out", "integrate", "trajectory.log")).matrices()
+    return {
+        "clouds": type(clouds)(*(torch.from_numpy(x) for x in clouds)),
+        "prepped": type(prepped)(prepped.coarse.to("cpu"), prepped.features.cpu(), prepped.fine.to("cpu")),
+        "ii": np.array([i for i, _ in pairs]), "jj": np.array([j for _, j in pairs]),
+        "draws": ransac.draw_hypotheses(SHARD_PAIRS, cfg.num_hypotheses, torch.Generator().manual_seed(0), "cpu"),
+        "graph": graph, "slac_init": init, "corres": corres,
+        "depths": torch.from_numpy(ds.depth_chunk(0, SHARD_FRAMES)),
+        "poses": torch.from_numpy(poses[:SHARD_FRAMES].astype(np.float32)), "intr": ds.intrinsics,
+        "scene": dict(volume_shape=tuple(plan["tile"]), voxel_size=scfg.scene_voxel_size,
+                      origin=tuple(plan["origin"])),
+        "mesh_capacity": scfg.mesh_capacity_per_slab,
+    }
+
+
+def shard_case(inp: dict, dev: torch.device) -> dict:
+    """``inp``'s tensors on ``dev`` as the paths take them."""
+    from elasticreconstruction_tpu_torch.elastic import CorresSet
+    from elasticreconstruction_tpu_torch.integrate.scene import SceneConfig
+    from elasticreconstruction_tpu_torch.posegraph import EdgeList
+    from elasticreconstruction_tpu_torch.registration import PreppedFragments
+
+    p, g = inp["prepped"], inp["graph"]
+    prepped = PreppedFragments(p.coarse.to(dev), p.features.to(dev), p.fine.to(dev))
+    ii4, jj4 = inp["ii"][:SHARD_INLINE_PAIRS], inp["jj"][:SHARD_INLINE_PAIRS]
+    return {
+        "prepped": prepped, "prepped8": prepped.take(torch.tensor(SHARD_RING_INDEX, device=dev)),
+        "ci": inp["clouds"].take(ii4).to(dev), "cj": inp["clouds"].take(jj4).to(dev), "ii4": ii4, "jj4": jj4,
+        "edges": EdgeList.build(g["i"], g["j"], g["transform"], g["information"], g["is_odometry"], device=dev),
+        "pgo_init": torch.from_numpy(g["init"]).to(dev), "slac_init": inp["slac_init"].to(dev),
+        "corres": CorresSet(*(None if x is None else x.to(dev) for x in inp["corres"])),
+        "depths": inp["depths"].to(dev), "poses": inp["poses"].to(dev),
+        "scene": SceneConfig(**inp["scene"]),
+    }
+
+
+def _host(res) -> dict:
+    return {k: v.cpu().numpy() for k, v in res._asdict().items() if torch.is_tensor(v)}
+
+
+def shard_paths(group, dev: torch.device, inp: dict) -> dict:
+    """Every distributed path once on this rank, each timed (wall and peak
+    memory) with its results on the host; and the rank's kernel launches (by
+    shape) and the collectives gloo staged through host memory."""
+    import torch.distributed as dist
+
+    from elasticreconstruction_tpu_torch.dist import comm, pair_sharding, pgo_dist, ring, slac_dist, volume_sharding
+    from elasticreconstruction_tpu_torch.elastic import SlacConfig, SlacMode
+    from elasticreconstruction_tpu_torch.integrate.scene import make_scene_volume
+    from elasticreconstruction_tpu_torch.posegraph import PGOConfig
+    from elasticreconstruction_tpu_torch.registration import RegistrationConfig
+
+    c, cfg, draws = shard_case(inp, dev), RegistrationConfig(), inp["draws"]
+    reset_launch_counts()
+    comm.host_staged.clear()
+    results, walls, peaks = {}, {}, {}
+
+    def run(name, fn, host=_host):
+        synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+        results[name] = host(out)
+        return out
+
+    for name, fused in (("pairs", False), ("pairs_fused", True)):
+        run(name, lambda: pair_sharding.register_prepped_sharded(
+            c["prepped"], inp["ii"], inp["jj"], None, cfg, draws=draws, fused_step=fused, group=group, device=dev))
+    run("pairs_inline", lambda: pair_sharding.register_pairs_sharded(
+        c["ci"], c["cj"], None, cfg, (c["ii4"], c["jj4"]), draws=draws[:SHARD_INLINE_PAIRS], group=group, device=dev))
+    run("ring", lambda: ring.register_all_pairs_ring(c["prepped8"], SHARD_RING_BASE, cfg, group=group, device=dev))
+    run("pgo", lambda: pgo_dist.optimize_pose_graph_sharded(c["pgo_init"], c["edges"], PGOConfig(), group=group))
+    for mode in (SlacMode.SLAC, SlacMode.NONRIGID):
+        run(mode.value, lambda: slac_dist.optimize_fragments_sharded(c["slac_init"], c["corres"], SlacConfig(mode=mode),
+                                                                     group=group))
+
+    def whole(slab):
+        vol = volume_sharding.gather_volume(slab, group)
+        return {"tsdf": vol.tsdf.cpu().numpy(), "weight": vol.weight.cpu().numpy()}
+
+    for scatter in (False, True):
+        slab = run("fuse_scatter" if scatter else "fuse", lambda: volume_sharding.fuse_sharded(
+            volume_sharding.shard_volume(make_scene_volume(c["scene"], device=dev), group),
+            c["depths"], c["poses"], inp["intr"], c["scene"], scatter=scatter), whole)
+    run("mesh", lambda: volume_sharding.extract_mesh_sharded(slab, group, capacity_per_slab=inp["mesh_capacity"]),
+        lambda t: t.cpu().numpy())
+    return {"results": results, "walls_s": walls, "peak_gib": peaks, "launches": launch_counts(),
+            "launches_by_shape": launches_by_shape(), "host_staged": dict(comm.host_staged),
+            "backend": dist.get_backend(group), "device": str(dev)}
+
+
+def shard_rank(rank: int, group, dev: torch.device, path: str) -> dict:
+    """One rank of a spawned run: the inputs from ``path``, every path."""
+    return shard_paths(group, dev, torch.load(path, weights_only=False))
+
+
+def shard_single(inp: dict, dev: torch.device) -> dict:
+    """The single-device path on the same inputs."""
+    from elasticreconstruction_tpu_torch.dist import ring
+    from elasticreconstruction_tpu_torch.elastic import SlacConfig, SlacMode, optimize_fragments
+    from elasticreconstruction_tpu_torch.integrate import extract_mesh
+    from elasticreconstruction_tpu_torch.integrate.scene import (
+        integrate_frames, integrate_frames_scatter, make_scene_volume,
+    )
+    from elasticreconstruction_tpu_torch.posegraph import PGOConfig, optimize_pose_graph
+    from elasticreconstruction_tpu_torch.registration import (
+        RegistrationConfig, register_pairs_batch, register_prepped_batch,
+    )
+
+    c, cfg, draws = shard_case(inp, dev), RegistrationConfig(), inp["draws"]
+    out = {name: _host(register_prepped_batch(c["prepped"], inp["ii"], inp["jj"], None, cfg, draws=draws,
+                                              fused_step=fused, device=dev))
+           for name, fused in (("pairs", False), ("pairs_fused", True))}
+    out["pairs_inline"] = _host(register_pairs_batch(c["ci"], c["cj"], None, cfg, (c["ii4"], c["jj4"]),
+                                                     draws=draws[:SHARD_INLINE_PAIRS], device=dev))
+    wanted = [(i, j) for i in range(6) for j in range(i + 2, 6)]  # the real fragments' pairs
+    out["ring"] = _host(register_prepped_batch(
+        c["prepped8"], [i for i, _ in wanted], [j for _, j in wanted], None, cfg,
+        draws=torch.stack([ring.pair_key(SHARD_RING_BASE, i, j, cfg.num_hypotheses) for i, j in wanted]),
+        device=dev))
+    out["ring"]["pairs"] = wanted
+    out["pgo"] = _host(optimize_pose_graph(c["pgo_init"], c["edges"], PGOConfig()))
+    for mode in (SlacMode.SLAC, SlacMode.NONRIGID):
+        out[mode.value] = _host(optimize_fragments(c["slac_init"], c["corres"], SlacConfig(mode=mode)))
+    for name, fn in (("fuse", integrate_frames), ("fuse_scatter", integrate_frames_scatter)):
+        vol = fn(make_scene_volume(c["scene"], device=dev), c["depths"], c["poses"], inp["intr"], c["scene"])
+        out[name] = {"tsdf": vol.tsdf.cpu().numpy(), "weight": vol.weight.cpu().numpy()}
+    tris, mask = extract_mesh(vol, capacity_per_slab=inp["mesh_capacity"])
+    out["mesh"] = tris[mask].cpu().numpy()
+    out["mesh_slab_fill"] = int(mask.sum(1).max())
+    return out
+
+
+def ring_lanes_wanted(world: int, f: int) -> np.ndarray:
+    """The ring's lane masks at ``world`` ranks over ``f`` fragments, in its
+    output order (rank, step, resident x travelling), from the rules of
+    ``dist/ring.py`` written out again: non-adjacent pairs, one ordering at
+    step 0, the mutual step of an even world on the lower base."""
+    fl, steps = f // world, world // 2 + 1
+    lane = np.arange(world * steps * fl * fl)
+    r, s, k = lane // (steps * fl * fl), (lane // (fl * fl)) % steps, lane % (fl * fl)
+    ii, base = r * fl + k // fl, ((r + s) % world) * fl
+    jj = base + k % fl
+    lo, hi = np.minimum(ii, jj), np.maximum(ii, jj)
+    want = (hi > lo + 1) & ((s != 0) | (jj > ii))
+    if world % 2 == 0:
+        want &= (s != world // 2) | (r * fl < base)
+    return want
+
+
+def ring_lanes_single(inp: dict, ring_res: dict, world: int, dev: torch.device) -> dict:
+    """``register_prepped_batch`` on the ring's lanes, one batch for each
+    (rank, step) as the ring ran them, with the same per-pair draws: the
+    ring must give these bits whatever its world size."""
+    from elasticreconstruction_tpu_torch.dist import ring
+    from elasticreconstruction_tpu_torch.registration import RegistrationConfig, register_prepped_batch
+
+    cfg, f = RegistrationConfig(), len(SHARD_RING_INDEX)
+    per = (f // world) ** 2
+    prepped8 = shard_case(inp, dev)["prepped8"]
+    parts = []
+    for a in range(0, len(ring_res["i"]), per):
+        lo, hi = ring_res["i"][a:a + per], ring_res["j"][a:a + per]
+        parts.append(_host(register_prepped_batch(
+            prepped8, lo, hi, None, cfg, device=dev,
+            draws=torch.stack([ring.pair_key(SHARD_RING_BASE, int(x), int(y), cfg.num_hypotheses)
+                               for x, y in zip(lo, hi)]))))
+    res = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    res["success"] &= ring_lanes_wanted(world, f)
+    return res
+
+
+def _sorted_rows(tris: np.ndarray) -> np.ndarray:
+    flat = tris.reshape(-1, 9)
+    return flat[np.lexsort(flat.T[::-1])]
+
+
+def _max_diff(a, b) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
+
+
+def check_shard(world: int, got: dict, want: dict, lanes: dict) -> tuple[dict, list[str]]:
+    """``got`` (a rank's results) against the single-device ``want``: bit for
+    bit at world size 1, else within the bounds above; the ring's lanes
+    against ``lanes``, the same lanes batched as the ring ran them on one
+    device, bit for bit. Returns the largest differences and the faults."""
+    exact = world == 1
+    diffs, faults = {}, []
+
+    def close(name, field, a, b, atol=0.0, rtol=0.0):
+        d = _max_diff(a, b)
+        diffs[f"{name}.{field}"] = d
+        if exact or atol == rtol == 0.0:
+            ok = np.array_equal(a, b)
+        else:
+            ok = np.shape(a) == np.shape(b) and np.allclose(a, b, rtol=rtol, atol=atol)
+        if not ok:
+            faults.append(f"world size {world}: {name}.{field} differs by {d}")
+
+    for name in ("pairs", "pairs_fused", "pairs_inline"):
+        g, w = got[name], want[name]
+        for field in ("i", "j", "success"):
+            close(name, field, g[field], w[field])
+        if exact:
+            close(name, "num_inliers", g["num_inliers"], w["num_inliers"])
+        else:
+            diffs[f"{name}.num_inliers"] = _max_diff(g["num_inliers"], w["num_inliers"])
+        # A rejected pair's transform is arbitrary (ICP's dead lanes run as long as the batch does).
+        ok = w["success"] if not exact else slice(None)
+        close(name, "transform", g["transform"][ok], w["transform"][ok], atol=SHARD_T_ATOL)
+        close(name, "information", g["information"][ok], w["information"][ok], SHARD_INFO_ATOL, SHARD_INFO_RTOL)
+    g = got["ring"]
+    succ = [(int(a), int(b)) for a, b, ok in zip(g["i"], g["j"], g["success"]) if ok]
+    lanes_want = {(i, j) for i in range(len(SHARD_RING_INDEX)) for j in range(i + 2, len(SHARD_RING_INDEX))}
+    if len(succ) != len(set(succ)) or {(int(a), int(b)) for a, b in zip(g["i"], g["j"]) if b > a + 1} != lanes_want:
+        faults.append(f"world size {world}: the ring's lanes miss or repeat a pair")
+    w = want["ring"]
+    by_pair = {p: k for k, p in enumerate(zip(g["i"].tolist(), g["j"].tolist())) if g["success"][k]}
+    for b, pair in enumerate(w["pairs"]):
+        k = by_pair.get(pair)
+        if (k is not None) != bool(w["success"][b]):
+            faults.append(f"world size {world}: ring pair {pair} success {k is not None}, replicated {w['success'][b]}")
+        elif k is not None:
+            dt = _max_diff(g["transform"][k], w["transform"][b])
+            info_rel = _max_diff(g["information"][k], w["information"][b]) / float(np.abs(w["information"][b]).max())
+            diffs["ring_vs_replicated.transform"] = max(diffs.get("ring_vs_replicated.transform", 0.0), dt)
+            diffs["ring_vs_replicated.information_rel"] = max(
+                diffs.get("ring_vs_replicated.information_rel", 0.0), info_rel)
+            if not (dt <= SHARD_RING_REPLICATED_T_ATOL and info_rel <= SHARD_RING_REPLICATED_INFO_REL):
+                faults.append(f"world size {world}: ring pair {pair} off the replicated enumeration by "
+                              f"{dt} (transform), {info_rel} (information, relative)")
+    # The same lanes in the same batches on one device: the same bits.
+    for field in lanes:
+        d = _max_diff(g[field], lanes[field])
+        diffs[f"ring_lanes.{field}"] = d
+        if not np.array_equal(g[field], lanes[field]):
+            faults.append(f"world size {world}: ring_lanes.{field} differs by {d}")
+    g, w = got["pgo"], want["pgo"]
+    close("pgo", "poses", g["poses"], w["poses"], atol=SHARD_PGO_ATOL)
+    close("pgo", "kept", g["kept"], w["kept"])
+    for mode in ("slac", "nonrigid"):
+        g, w = got[mode], want[mode]
+        close(mode, "poses", g["poses"], w["poses"], atol=SHARD_SLAC_POSE_ATOL)
+        close(mode, "final_rmse", g["final_rmse"], w["final_rmse"], atol=SHARD_SLAC_RMSE_ATOL)
+        if exact:
+            close(mode, "displacement", g["displacement"], w["displacement"])
+            close(mode, "data_rmse", g["data_rmse"], w["data_rmse"])
+    for name in ("fuse", "fuse_scatter"):
+        close(name, "weight", got[name]["weight"], want[name]["weight"])
+        close(name, "tsdf", got[name]["tsdf"], want[name]["tsdf"], atol=SHARD_TSDF_ATOL)
+    if exact:
+        close("mesh", "triangles", got["mesh"], want["mesh"])
+    else:
+        close("mesh", "sorted_triangles", _sorted_rows(got["mesh"]), _sorted_rows(want["mesh"]))
+    return diffs, faults
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def report_shard_run(name: str, ranks: list[dict], want: dict, inp: dict, dev: torch.device) -> list[str]:
+    """One run's numbers on a line of its own; every rank's results must be
+    the same, and rank 0's within the bounds. Returns the faults."""
+    world = len(ranks)
+    lanes = ring_lanes_single(inp, ranks[0]["results"]["ring"], world, dev)
+    diffs, faults = check_shard(world, ranks[0]["results"], want, lanes)
+    faults += [f"{name}: rank {r} differs from rank 0" for r in range(1, world)
+               if not _same_bits(ranks[r]["results"], ranks[0]["results"])]
+    print(json.dumps({f"dist_{name}": {
+        "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks],
+        "walls_s": {k: max(r["walls_s"][k] for r in ranks) for k in ranks[0]["walls_s"]},
+        "peak_gib_by_rank": [max(r["peak_gib"].values()) for r in ranks],
+        "peak_gib_by_path": {k: max(r["peak_gib"][k] for r in ranks) for k in ranks[0]["peak_gib"]},
+        "host_staged_by_rank": [r["host_staged"] for r in ranks],
+        "launches_by_shape_by_rank": [r["launches_by_shape"] for r in ranks],
+        "max_abs_diff_vs_single": diffs}}))
+    return faults
+
+
+def phase_dist(tmp: str, frag: dict, scene: dict, graph: dict) -> dict:
+    """Every path of ``dist/`` at full width against the single-device path,
+    at world size 1 (NCCL, in this process), 2 (gloo on cuda:0, two spawned
+    processes) twice, and ``device_count`` (NCCL, a process a card) where
+    there are two cards or more. The launches of the world-size-1 run and the
+    first world-size-2 run are the path's ``launches``."""
+    import torch.distributed as dist
+
+    from elasticreconstruction_tpu_torch.dist import mesh
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    inp = shard_inputs(tmp, frag, scene, graph)
+    path = os.path.join(tmp, "dist_inputs.pt")
+    torch.save(inp, path)
+    want = shard_single(inp, dev)
+    rec = {"inputs_s": time.perf_counter() - t0, "mesh_slab_fill": want["mesh_slab_fill"],
+           "mesh_capacity": inp["mesh_capacity"], "triangles": len(want["mesh"])}
+    if want["mesh_slab_fill"] >= inp["mesh_capacity"]:
+        fail(f"dist: a z-slab of the single volume holds {want['mesh_slab_fill']} triangles, its capacity "
+             f"{inp['mesh_capacity']}: the sharded mesh cannot equal it")
+    faults = []
+
+    # World size 1, NCCL, in this process.
+    t0 = time.perf_counter()
+    mesh.init_group("nccl", 1, 0, "file://" + os.path.join(tmp, "nccl_store"))
+    try:
+        one = shard_paths(dist.group.WORLD, dev, inp)
+    finally:
+        dist.destroy_process_group()
+    rec["world_1_s"] = time.perf_counter() - t0
+    launches = dict(one["launches"])
+    faults += report_shard_run("world_1_nccl", [one], want, inp, dev)
+
+    # World size 2, gloo, two processes on cuda:0; twice.
+    runs = []
+    for k in range(2):
+        t0 = time.perf_counter()
+        runs.append(mesh.spawn_ranks(shard_rank, 2, "gloo", "cuda:0", path, timeout_s=SHARD_TIMEOUT_S))
+        rec[f"world_2_run_{k}_s"] = time.perf_counter() - t0
+        faults += report_shard_run(f"world_2_gloo_run_{k}", runs[-1], want, inp, dev)
+    for r in runs[0]:
+        for name, n in r["launches"].items():
+            launches[name] += n
+    rec["world_2_repeats_bits"] = all(_same_bits(a["results"], b["results"]) for a, b in zip(*runs))
+    if not rec["world_2_repeats_bits"]:
+        faults.append("two runs at world size 2 gave different bits")
+    staged = runs[0][0]["host_staged"]
+    print(f"dist: under gloo with CUDA tensors these went through host memory: {staged or 'nothing'}; "
+          "all_reduce, all_gather and broadcast took CUDA tensors natively")
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        t0 = time.perf_counter()
+        ranks = mesh.spawn_ranks(shard_rank, n, "nccl", [f"cuda:{r}" for r in range(n)], path,
+                                 timeout_s=SHARD_TIMEOUT_S)
+        rec[f"world_{n}_nccl_s"] = time.perf_counter() - t0
+        faults += report_shard_run(f"world_{n}_nccl", ranks, want, inp, dev)
+    else:
+        print(f"dist: NCCL with one rank a card was not run: torch.cuda.device_count() is {n}, and NCCL "
+              "cannot put two ranks on one card")
+    rec["launches"] = launches
+    print(json.dumps({"dist": {k: v for k, v in rec.items() if k != "launches"}}))
+    require_launched("dist", launches, ["nearest_batch", "normal_eqs_batch"])
+    if faults:
+        fail("dist: " + "; ".join(faults))
+    return rec
+
+
 KERNELS = {
     "nearest_batch": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/nn.cu",
@@ -1980,14 +2425,18 @@ def main() -> int:
 
     by_path["calibration"] = phase_calibration()
     phase_done("calibration path")
-    by_path["stages"] = phase_stages()["launches"]
+    stages = phase_stages()
+    by_path["stages"] = stages["launches"]
     phase_done("stage path")
     with tempfile.TemporaryDirectory() as tmp:
         frag = phase_fragments(tmp)
         by_path["fragments"] = frag["launches"]
         phase_done("fragments path")
-        by_path["scene"] = phase_scene(tmp, frag)["launches"]
+        scene = phase_scene(tmp, frag)
+        by_path["scene"] = scene["launches"]
         phase_done("scene path")
+        by_path["dist"] = phase_dist(tmp, frag, scene, stages["graph"])["launches"]
+        phase_done("dist paths")
         by_path["determinism"] = phase_determinism(tmp)["launches"]
         phase_done("determinism: register, posegraph, optimize and integrate twice")
         elastic = phase_elastic(tmp, frag)

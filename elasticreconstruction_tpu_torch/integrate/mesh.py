@@ -100,15 +100,16 @@ def _case(v0, v1, v2, v3) -> torch.Tensor:
     return (v0 < 0).long() + 2 * (v1 < 0).long() + 4 * (v2 < 0).long() + 8 * (v3 < 0).long()
 
 
-def _valid_candidates(vol: TSDFVolume, z0: int, g: int, tab: _Tables) -> torch.Tensor:
-    """Valid flags ``(g, 6 * cx * cy * 2)`` of the candidates of slabs ``z0 .. z0+g-1``."""
-    nx, ny, _ = vol.shape
-    cx, cy = nx - 1, ny - 1
+def _valid_candidates(vol: TSDFVolume, z0: int, g: int, cells: tuple[int, int], tab: _Tables) -> torch.Tensor:
+    """Valid flags ``(g, 6 * cx * cy * 2)`` of the candidates of slabs
+    ``z0 .. z0+g-1`` in the cubes of x ``cells[0] .. cells[1]-1``."""
+    _, ny, _ = vol.shape
+    x0, cx, cy = cells[0], cells[1] - cells[0], ny - 1
     tz, wz = vol.tsdf.permute(2, 0, 1), vol.weight.permute(2, 0, 1)
 
     def corner(a, k):
         dx, dy, dz = _CORNERS[k]
-        return a[z0 + dz : z0 + dz + g, dx : dx + cx, dy : dy + cy]
+        return a[z0 + dz : z0 + dz + g, x0 + dx : x0 + dx + cx, dy : dy + cy]
 
     vals = [corner(tz, k) for k in range(8)]
     observed = torch.stack([corner(wz, k) > 0 for k in range(8)]).all(0)  # (g, cx, cy)
@@ -117,15 +118,18 @@ def _valid_candidates(vol: TSDFVolume, z0: int, g: int, tab: _Tables) -> torch.T
     return valid.reshape(g, -1)
 
 
-def _kept_triangles(vol: TSDFVolume, z0: int, order: torch.Tensor, tab: _Tables) -> torch.Tensor:
+def _kept_triangles(vol: TSDFVolume, z0: int, order: torch.Tensor, cells: tuple[int, int], x_offset: int,
+                    tab: _Tables) -> torch.Tensor:
     """Voxel-unit vertices ``(g, M, 3, 3)`` of the candidates ``order (g, M)``
-    of slabs ``z0 ..``: the reference's corner values, edge interpolation and
-    vertex arithmetic, on these candidates alone."""
-    nx, ny, nz = vol.shape
-    cx, cy = nx - 1, ny - 1
+    of slabs ``z0 ..`` among the cubes of local x ``cells``, their x counted
+    from the plane ``x_offset`` planes below ``vol``'s first: the reference's
+    corner values, edge interpolation and vertex arithmetic, on these
+    candidates alone."""
+    _, ny, nz = vol.shape
+    cx, cy = cells[1] - cells[0], ny - 1
     k = order % 2
     iy = (order // 2) % cy
-    ix = (order // (2 * cy)) % cx
+    ix = (order // (2 * cy)) % cx + cells[0]
     t = order // (2 * cy * cx)
     z = z0 + torch.arange(order.shape[0], device=order.device)[:, None]
     flat = vol.tsdf.reshape(-1)
@@ -135,7 +139,7 @@ def _kept_triangles(vol: TSDFVolume, z0: int, order: torch.Tensor, tab: _Tables)
         v.append(flat[((ix + d[..., 0]) * ny + (iy + d[..., 1])) * nz + (z + d[..., 2])])
     v = torch.stack(v, -1)  # (g, M, 4)
     edges = tab.case[_case(*v.unbind(-1)), k].clamp_min(0)  # (g, M, 3)
-    base = torch.stack([ix, iy, z.expand_as(ix)], -1).to(torch.float32)  # (g, M, 3)
+    base = torch.stack([ix + x_offset, iy, z.expand_as(ix)], -1).to(torch.float32)  # (g, M, 3)
     va = torch.gather(v, -1, tab.slot_a[edges])
     vb = torch.gather(v, -1, tab.slot_b[edges])
     denom = va - vb
@@ -146,33 +150,43 @@ def _kept_triangles(vol: TSDFVolume, z0: int, order: torch.Tensor, tab: _Tables)
     return (base[..., None, :] + pa) + alpha[..., None] * (pb - pa)
 
 
-def extract_mesh(vol: TSDFVolume, *, capacity_per_slab: int = 16384):
+def extract_mesh(vol: TSDFVolume, *, capacity_per_slab: int = 16384, x_offset: int = 0,
+                 x_cells: tuple[int, int] | None = None):
     """Triangle soup ``((nz-1, M, 3, 3) verts, (nz-1, M) mask)``, ``M`` the
     smaller of ``capacity_per_slab`` and a slab's candidate count.
 
     Triangles are oriented so the normal points toward positive TSDF (free
     space). Use :func:`weld_mesh` to produce an indexed mesh for PLY output.
+
+    An x-slab of a larger volume (``dist/volume_sharding.py``): ``vol`` holds
+    its planes from plane ``x_offset`` on, with the larger volume's origin,
+    and only the cubes of local x ``x_cells[0] .. x_cells[1]-1`` are
+    marched. Vertices and orientation then have the bits the larger volume
+    gives them, as long as ``vol`` holds the two planes below those cubes
+    and the three above (or the larger volume's end): the orientation test
+    samples the gradient a voxel either side of the centroid.
     """
     nx, ny, nz = vol.shape
     dev = vol.tsdf.device
     tab = _Tables(dev)
-    candidates = 12 * (nx - 1) * (ny - 1)
+    cells = (0, nx - 1) if x_cells is None else x_cells
+    candidates = 12 * (cells[1] - cells[0]) * (ny - 1)
     group = max(1, GROUP_BYTES // (BYTES_PER_CANDIDATE * candidates))
     tris, masks = [], []
     for z0 in range(0, nz - 1, group):
         g = min(group, nz - 1 - z0)
-        valid = _valid_candidates(vol, z0, g, tab)
+        valid = _valid_candidates(vol, z0, g, cells, tab)
         # Rows past the fullest slab's count are zero in every slab of the
         # group: only the first `kept` are computed (one host read a group).
         kept = min(capacity_per_slab, int(valid.sum(1).max()))
         order = torch.argsort(~valid, dim=-1, stable=True)[:, :kept]
         mask = torch.gather(valid, 1, order)
-        local = _kept_triangles(vol, z0, order, tab)
+        local = _kept_triangles(vol, z0, order, cells, x_offset, tab)
         out = torch.stack([fma(local[..., a], vol.voxel_size, vol.origin[a]) for a in range(3)], -1)
         out = torch.where(mask[..., None, None], out, 0.0)
         # Orient: flip triangles whose normal disagrees with the TSDF gradient.
         centroids = (out[..., 0, :] + out[..., 1, :] + out[..., 2, :]) * f32_reciprocal(3.0)
-        grad = sample_gradient(vol, centroids)
+        grad = sample_gradient(vol, centroids, x_offset)
         n = torch.linalg.cross(out[..., 1, :] - out[..., 0, :], out[..., 2, :] - out[..., 0, :], dim=-1)
         flip = (n * grad).sum(-1) < 0
         pad = min(capacity_per_slab, candidates) - kept

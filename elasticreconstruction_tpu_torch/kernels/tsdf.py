@@ -69,12 +69,17 @@ def make_volume(
     )
 
 
-def axis_centers(vol: TSDFVolume) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """World coordinate of the voxel centers along each axis: ``(X,), (Y,), (Z,)``."""
+def axis_centers(vol: TSDFVolume, x_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """World coordinate of the voxel centers along each axis: ``(X,), (Y,), (Z,)``.
+
+    ``x_offset``: the volume is the x-slab of a larger one whose plane
+    ``x_offset`` is its plane 0; ``origin`` is the larger volume's, so every
+    center has the bits it has there (``dist/volume_sharding.py``).
+    """
     dev = vol.tsdf.device
     return tuple(
-        fma(torch.arange(n, dtype=torch.float32, device=dev), vol.voxel_size, o)
-        for n, o in zip(vol.shape, vol.origin)
+        fma(torch.arange(off, off + n, dtype=torch.float32, device=dev), vol.voxel_size, o)
+        for n, o, off in zip(vol.shape, vol.origin, (x_offset, 0, 0))
     )
 
 
@@ -120,12 +125,14 @@ def fuse(
     max_weight: float = 64.0,
     depth_min: float = 0.1,
     depth_max: float = 6.0,
+    x_offset: int = 0,
 ) -> TSDFVolume:
-    """Fuse one depth map (``pose`` = camera-to-world) into the volume."""
+    """Fuse one depth map (``pose`` = camera-to-world) into the volume
+    (an x-slab from plane ``x_offset`` on, see :func:`axis_centers`)."""
     R = pose[:3, :3]
     # Camera coordinate j of voxel (i, k, l): sum_a (c_a - t_a) R[a, j], the
     # reference's (p_world - t) @ R, built from three per-axis vectors.
-    a = [c - pose[i, 3] for i, c in enumerate(axis_centers(vol))]
+    a = [c - pose[i, 3] for i, c in enumerate(axis_centers(vol, x_offset))]
     ax, ay, az = a[0][:, None, None], a[1][None, :, None], a[2][None, None, :]
     x, y, z = ((ax * R[0, j] + ay * R[1, j]) + az * R[2, j] for j in range(3))
     return _fuse_components(vol, depth, x, y, z, intr, max_weight, depth_min, depth_max)
@@ -212,6 +219,7 @@ def scatter_update(
     max_weight: float = 64.0,
     depth_min: float = 0.1,
     depth_max: float = 6.0,
+    x_offset: int = 0,
 ) -> TSDFVolume:
     """Scatter band samples into the volume; one weight unit per hit voxel.
 
@@ -219,14 +227,17 @@ def scatter_update(
     at that voxel's center through ``world_to_cam`` + :func:`voxel_obs`, so
     duplicate samples in a voxel carry bit-identical values and one
     scatter-max equals their mean (``world_to_cam`` must be elementwise, as
-    :func:`rigid_world_to_cam` is).
+    :func:`rigid_world_to_cam` is). Of an x-slab (:func:`axis_centers`)
+    only the samples nominating its own voxels count.
     """
     nx, ny, nz = vol.shape
     inv = f32_reciprocal(vol.voxel_size)
     idx = [torch.round((p_world[..., k] - vol.origin[k]) * inv).to(torch.int64) for k in range(3)]
+    idx[0] = idx[0] - x_offset
     inb = _in_range(idx, (nx, ny, nz))
     ic = [torch.clip(i, 0, n - 1) for i, n in zip(idx, (nx, ny, nz))]
-    center_world = torch.stack([fma(i.to(torch.float32), vol.voxel_size, o) for i, o in zip(ic, vol.origin)], -1)
+    center_world = torch.stack([fma((i + off).to(torch.float32), vol.voxel_size, o)
+                                for i, o, off in zip(ic, vol.origin, (x_offset, 0, 0))], -1)
     obs, obs_ok = voxel_obs(vol, world_to_cam(center_world), depth, intr,
                             depth_min=depth_min, depth_max=depth_max)
     hit_ok = valid & inb & obs_ok
@@ -256,17 +267,19 @@ def fuse_scatter(
     max_weight: float = 64.0,
     depth_min: float = 0.1,
     depth_max: float = 6.0,
+    x_offset: int = 0,
 ) -> TSDFVolume:
     """Scatter-formulation fusion: iterate pixels x band samples, not voxels.
 
     Same per-voxel observation as :func:`fuse` on hit voxels, but only inside
-    the truncation band: free space outside it is never carved.
+    the truncation band: free space outside it is never carved. ``x_offset``
+    as in :func:`fuse`.
     """
     p_cam, valid = band_samples(depth, intr, vol.truncation, num_samples=num_samples,
                                 depth_min=depth_min, depth_max=depth_max)
     p_world = p_cam @ pose[:3, :3].T + pose[:3, 3]
     return scatter_update(vol, p_world, valid, rigid_world_to_cam(pose), depth, intr,
-                          max_weight=max_weight, depth_min=depth_min, depth_max=depth_max)
+                          max_weight=max_weight, depth_min=depth_min, depth_max=depth_max, x_offset=x_offset)
 
 
 # Sentinel marking never-observed voxels in a combined sampling volume. Any
@@ -285,14 +298,16 @@ def _grid(origin, voxel_size, comps):
     return [(p - o) * inv for p, o in zip(comps, origin)]
 
 
-def _trilinear(table, shape, origin, voxel_size, comps, with_valid: bool):
+def _trilinear(table, shape, origin, voxel_size, comps, with_valid: bool, x_offset: int = 0):
     """Trilinear sample of ``table (X, Y, Z)`` at points given as coordinate
-    tensors ``(x, y, z)``; ``(value, valid or None)``."""
+    tensors ``(x, y, z)``; ``(value, valid or None)``. ``x_offset``: the
+    table's plane 0 is plane ``x_offset`` of the volume ``origin`` belongs to."""
     nx, ny, nz = shape
     g = _grid(origin, voxel_size, comps)
     g0 = [torch.floor(c) for c in g]
     f = [c - c0 for c, c0 in zip(g, g0)]
     i0 = [c0.to(torch.int64) for c0 in g0]
+    i0[0] = i0[0] - x_offset
     in_bounds = _in_range(i0, [n - 1 for n in shape])
     ic = [torch.clip(i, 0, n - 2) for i, n in zip(i0, shape)]
     base = (ic[0] * ny + ic[1]) * nz + ic[2]
@@ -341,13 +356,13 @@ def sample_nearest(
     return _nearest(sval, origin, voxel_size, points.unbind(-1))
 
 
-def _gradient(vol: TSDFVolume, comps) -> list[torch.Tensor]:
+def _gradient(vol: TSDFVolume, comps, x_offset: int = 0) -> list[torch.Tensor]:
     """Unit central-difference TSDF gradient at points ``(x, y, z)``, as components."""
     h = vol.voxel_size
 
     def s(axis, sign):
         moved = [c + sign * h if k == axis else c for k, c in enumerate(comps)]
-        return _trilinear(vol.tsdf, vol.shape, vol.origin, vol.voxel_size, moved, False)[0]
+        return _trilinear(vol.tsdf, vol.shape, vol.origin, vol.voxel_size, moved, False, x_offset)[0]
 
     g = [s(k, 1.0) - s(k, -1.0) for k in range(3)]
     n = torch.sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2])
@@ -355,10 +370,11 @@ def _gradient(vol: TSDFVolume, comps) -> list[torch.Tensor]:
     return [c / n for c in g]
 
 
-def sample_gradient(vol: TSDFVolume, points: torch.Tensor) -> torch.Tensor:
+def sample_gradient(vol: TSDFVolume, points: torch.Tensor, x_offset: int = 0) -> torch.Tensor:
     """Central-difference TSDF gradient at world points (surface normal dir):
-    differences of value-only trilinear samples (48 gathers per point)."""
-    return torch.stack(_gradient(vol, points.unbind(-1)), -1)
+    differences of value-only trilinear samples (48 gathers per point);
+    ``x_offset`` as in :func:`axis_centers`."""
+    return torch.stack(_gradient(vol, points.unbind(-1), x_offset), -1)
 
 
 def extract_surface_points(vol: TSDFVolume, *, capacity: int) -> PointCloud:

@@ -128,8 +128,10 @@ def edge_residuals_and_jacobians(poses: torch.Tensor, edges: EdgeList):
     return r[0], d[:6].permute(1, 2, 0), d[6:].permute(1, 2, 0)
 
 
-def _gn_step(poses, edges: EdgeList, weights, cfg: PGOConfig):
-    """One damped GN step over all poses; returns updated poses."""
+def _partial_blocks(poses, edges: EdgeList, weights):
+    """The normal equations' sums over ``edges``: H as ``(N * N, 6, 6)`` blocks
+    and b as ``(N, 6)``. No collective inside: a shard of the edges gives its
+    share of both sums (``dist/pgo_dist.py``)."""
     n = poses.shape[0]
     r, Ji, Jj = edge_residuals_and_jacobians(poses, edges)
 
@@ -145,14 +147,22 @@ def _gn_step(poses, edges: EdgeList, weights, cfg: PGOConfig):
     bi = torch.einsum("eab,ea->eb", Ji, Lr)
     bj = torch.einsum("eab,ea->eb", Jj, Lr)
 
-    # Assemble dense H (6N, 6N) and b (6N,) with segment sums over block ids.
+    # Segment sums over block ids.
     blk = torch.cat(
         [edges.i * n + edges.i, edges.i * n + edges.j, edges.j * n + edges.i, edges.j * n + edges.j]
     )
     vals = torch.cat([Hii, Hij, Hij.transpose(-1, -2), Hjj], dim=0)
     Hblocks = segment.segment_sum_by_keys(vals, blk, n * n)
+    b = segment.segment_sum_by_keys(torch.cat([bi, bj], dim=0), torch.cat([edges.i, edges.j]), n)
+    return Hblocks, b
+
+
+def _damped_solve(poses, Hblocks, b, cfg: PGOConfig):
+    """The damped GN step from the summed blocks; returns updated poses."""
+    n = poses.shape[0]
+    # Dense H (6N, 6N) and b (6N,).
     H = Hblocks.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
-    b = segment.segment_sum_by_keys(torch.cat([bi, bj], dim=0), torch.cat([edges.i, edges.j]), n).reshape(6 * n)
+    b = b.reshape(6 * n)
 
     # Gauge anchor on pose 0 + LM damping.
     anchor = torch.zeros(6 * n, dtype=H.dtype, device=H.device)
@@ -162,10 +172,44 @@ def _gn_step(poses, edges: EdgeList, weights, cfg: PGOConfig):
     return poses @ se3.exp(delta.reshape(n, 6))
 
 
+def _gn_step(poses, edges: EdgeList, weights, cfg: PGOConfig):
+    """One damped GN step over all poses; returns updated poses."""
+    return _damped_solve(poses, *_partial_blocks(poses, edges, weights), cfg)
+
+
 def _edge_residual_sq(poses, edges: EdgeList):
     That_inv = se3.inverse(edges.transform)
     r = se3.log(That_inv @ se3.inverse(poses[edges.i]) @ poses[edges.j])
     return torch.einsum("ea,eab,eb->e", r, edges.information, r)
+
+
+def alternate(poses: torch.Tensor, edges: EdgeList, cfg: PGOConfig, gn_step) -> PGOResult:
+    """The line-process alternation around ``gn_step(poses, weights) -> poses``,
+    with the line-process updates over all of ``edges``. Both the single-device
+    solve and the edge-sharded one (``dist/pgo_dist.py``) run it."""
+    one = torch.ones((), dtype=torch.float32, device=poses.device)
+    l = torch.ones(edges.i.shape[0], dtype=torch.float32, device=poses.device)
+    for _ in range(cfg.outer_iterations):
+        weights = torch.where(edges.is_odometry, one, l)
+        for _ in range(cfg.inner_iterations):
+            poses = gn_step(poses, weights)
+        r2 = _edge_residual_sq(poses, edges)
+        l = (cfg.mu / (cfg.mu + r2)) ** 2
+
+    # Final polish on the pruned graph.
+    kept_soft = edges.is_odometry | (l >= cfg.prune_threshold)
+    weights = torch.where(edges.is_odometry, one, torch.where(kept_soft, l, torch.zeros_like(l)))
+    for _ in range(cfg.inner_iterations):
+        poses = gn_step(poses, weights)
+    r2 = _edge_residual_sq(poses, edges)
+    l_final = torch.where(edges.is_odometry, one, (cfg.mu / (cfg.mu + r2)) ** 2)
+    kept = edges.mask & (edges.is_odometry | (l_final >= cfg.prune_threshold))
+    return PGOResult(
+        poses=se3.orthonormalize(poses),
+        line_process=l_final,
+        kept=kept,
+        residual_sq=r2,
+    )
 
 
 def optimize_pose_graph(
@@ -178,26 +222,4 @@ def optimize_pose_graph(
     Runs on the device of ``poses``; ``edges`` is moved there.
     """
     edges = edges.to(poses.device)
-    one = torch.ones((), dtype=torch.float32, device=poses.device)
-    l = torch.ones(edges.i.shape[0], dtype=torch.float32, device=poses.device)
-    for _ in range(cfg.outer_iterations):
-        weights = torch.where(edges.is_odometry, one, l)
-        for _ in range(cfg.inner_iterations):
-            poses = _gn_step(poses, edges, weights, cfg)
-        r2 = _edge_residual_sq(poses, edges)
-        l = (cfg.mu / (cfg.mu + r2)) ** 2
-
-    # Final polish on the pruned graph.
-    kept_soft = edges.is_odometry | (l >= cfg.prune_threshold)
-    weights = torch.where(edges.is_odometry, one, torch.where(kept_soft, l, torch.zeros_like(l)))
-    for _ in range(cfg.inner_iterations):
-        poses = _gn_step(poses, edges, weights, cfg)
-    r2 = _edge_residual_sq(poses, edges)
-    l_final = torch.where(edges.is_odometry, one, (cfg.mu / (cfg.mu + r2)) ** 2)
-    kept = edges.mask & (edges.is_odometry | (l_final >= cfg.prune_threshold))
-    return PGOResult(
-        poses=se3.orthonormalize(poses),
-        line_process=l_final,
-        kept=kept,
-        residual_sq=r2,
-    )
+    return alternate(poses, edges, cfg, lambda p, w: _gn_step(p, edges, w, cfg))

@@ -54,6 +54,10 @@ def test_import_pulls_in_no_jax():
         "import elasticreconstruction_tpu_torch.synthetic.distortion, elasticreconstruction_tpu_torch.synthetic.warps\n"
         "import elasticreconstruction_tpu_torch.eval.lattice_recovery, elasticreconstruction_tpu_torch.eval.surface_error\n"
         "import elasticreconstruction_tpu_torch.core.segment, elasticreconstruction_tpu_torch.tools.repeat_check\n"
+        "import elasticreconstruction_tpu_torch.dist, elasticreconstruction_tpu_torch.dist.comm\n"
+        "import elasticreconstruction_tpu_torch.dist.ring, elasticreconstruction_tpu_torch.dist.dryrun\n"
+        "import elasticreconstruction_tpu_torch.dist.pgo_dist, elasticreconstruction_tpu_torch.dist.slac_dist\n"
+        "import elasticreconstruction_tpu_torch.dist.volume_sharding, elasticreconstruction_tpu_torch.dist.pair_sharding\n"
         "import kernels_bench_gpu, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m == 'elasticreconstruction_tpu' or m.startswith('elasticreconstruction_tpu.')\n"
@@ -171,6 +175,32 @@ def test_stage_entry_points_default_to_the_card(tmp_path):
     assert not (tmp_path / "registration" / "odometry.log").exists()
     assert not (tmp_path / "fragments" / "local_0.log").exists() and not (tmp_path / "synth").exists()
     assert not any((tmp_path / d).exists() for d in ("slac", "integrate", "corres"))
+
+
+def test_dist_entry_points_default_to_the_card(tmp_path):
+    """The distributed entry points that take a device default to the card
+    and raise where there is none, before touching a process group; NCCL
+    is refused rather than turned into gloo."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    import numpy as np
+    import torch.distributed as dist
+
+    from elasticreconstruction_tpu_torch.bench_scene import make_fragments
+    from elasticreconstruction_tpu_torch.dist import mesh, pair_sharding, ring
+    from elasticreconstruction_tpu_torch.registration import RegistrationConfig, prep_fragments_batch
+
+    clouds, _ = make_fragments(2, n=200)
+    prepped = prep_fragments_batch(clouds, RegistrationConfig(coarse_capacity=64, fine_capacity=64), device="cpu")
+    for call in (
+        lambda: pair_sharding.register_pairs_sharded(clouds, clouds, None, RegistrationConfig()),
+        lambda: pair_sharding.register_prepped_sharded(prepped, np.zeros(2), np.ones(2)),
+        lambda: ring.register_all_pairs_ring(prepped, 0),
+        lambda: mesh.init_group("nccl", 1, 0, "file://" + str(tmp_path / "store")),
+    ):
+        with pytest.raises(RuntimeError, match="cuda|nccl"):
+            call()
+    assert not dist.is_initialized()
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():
