@@ -111,7 +111,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    every artifact written, ATE under 3 cm; then the default mode's
    ``optimize`` on the CPU from the card's upstream, within
    ``CARD_CPU_VERB_ATOL`` of the card's files.
-13. One JSON line of per-kernel numbers, then the last line
+13. The milestone ladder (``tools/milestones.py``) at its full width: config
+   3 cut in depth to its first 201 frames (4 fragments; 320x240, 128^3 volumes of 2.4
+   cm, 96 raycast steps, clouds of 1 << 16 rows, batches of 16) with ATE
+   under 2 cm, then config 4 slac and config 4n on its directory; the
+   ``register`` verb under ``--profile``, whose trace must hold CUDA kernel
+   events of ``nearest_kernel``; ``tools/ring_scale.py`` at world size 1
+   (NCCL) over the 4 fragments (every wanted pair in one lane) and
+   ``tools/reg_profile.py``; then ``nearest_batch`` at the ladder's harvest
+   shape, (1, 65536, 65536), against its plain version as in phase 3. One
+   JSON line ``{"milestones_path": ...}``.
+14. One JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
@@ -132,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -579,22 +590,25 @@ def check_calib_kernels() -> dict:
     return out
 
 
-def check_nearest_at_harvest_shape(rng, dev) -> dict:
-    """``nearest_batch`` at the harvest's shape: two padded fragment clouds of
-    ``HARVEST_CAPACITY`` rows, ``HARVEST_POINTS`` of them valid. The plain
-    version runs on the first ``HARVEST_PLAIN_QUERIES`` queries against every
-    ref; there the indices must be equal and d2 within 1e-5. The scratch cache
-    must have grown to the launch's partial results."""
+def check_nearest_at_harvest_shape(rng, dev, capacity: int = HARVEST_CAPACITY, points: int = HARVEST_POINTS,
+                                   note: str = "harvest", min_splits: int = 64) -> dict:
+    """``nearest_batch`` at a harvest's shape: two padded fragment clouds of
+    ``capacity`` rows, ``points`` of them valid (by default the full preset's,
+    ``HARVEST_*``). The plain version runs on the first
+    ``HARVEST_PLAIN_QUERIES`` queries against every ref; there the indices
+    must be equal and d2 within 1e-5. The launch must split the refs
+    ``min_splits`` ways or more, and the scratch cache must have grown to its
+    partial results."""
     from elasticreconstruction_tpu_torch.kernels.cuda import build, nn
 
-    n, k = HARVEST_CAPACITY, HARVEST_PLAIN_QUERIES
+    n, k = capacity, HARVEST_PLAIN_QUERIES
     ref, _ = surface(rng, (1, n))
     query, _ = surface(rng, (1, n))
     query += rng.normal(0.0, 0.01, query.shape).astype(np.float32)
     mask = np.zeros((1, n), bool)
-    mask[:, :HARVEST_POINTS] = True
+    mask[:, :points] = True
     q, r, m = (torch.from_numpy(x).to(dev) for x in (query, ref, mask))
-    name = f"nearest_batch {(1, n, n)} (harvest)"
+    name = f"nearest_batch {(1, n, n)} ({note})"
     d_k, i_k = twice(name, lambda: nn.nearest_batch(q, r, m))
     d_p, i_p = nn.nearest_batch_plain(q[:, :k], r, m)
     torch.cuda.synchronize()
@@ -608,7 +622,7 @@ def check_nearest_at_harvest_shape(rng, dev) -> dict:
           f"(cache {4 * cached / 1e6:.1f} MB)")
     if mismatches or not err <= 1e-5:
         fail(f"{name}: {mismatches} index mismatches, max |d2 difference| {err} (want 0 and <= 1e-5)")
-    if geo.splits < 64 or cached < floats:
+    if geo.splits < min_splits or cached < floats:
         fail(f"{name}: {geo.splits} ref splits, scratch cache {cached} floats < {floats}")
     ms = cuda_ms(lambda: nn.nearest_batch(q, r, m), reps=10)
     one_call = call_ms(lambda: nn.nearest_batch(q, r, m), reps=10)
@@ -616,7 +630,7 @@ def check_nearest_at_harvest_shape(rng, dev) -> dict:
     plain = cuda_ms(lambda: nn.nearest_batch_plain(qk, r, m), reps=2, warmup=1)
     lib = cuda_ms(lambda: torch.cdist(qk, r_far, compute_mode="use_mm_for_euclid_dist").min(dim=-1), reps=3)
     bnd, by = bound_ms(NN_OPS_PER_PAIR * n * n, 4 * 3 * 2 * n + n + 8 * n)
-    valid_share = HARVEST_POINTS / n
+    valid_share = points / n
     print(f"  ms kernel {ms:.4f} (one call {one_call:.4f}), bound {bnd:.4f} ({by}), time/bound {ms / bnd:.2f}; "
           f"over {k} queries: plain {plain:.4f}, cdist+min {lib:.4f}; valid refs {valid_share:.3f} of those scanned")
     return {"max_abs_err": err, "ms": ms, "call_ms": one_call, "plain_ms": None, "library_ms": None,
@@ -1979,6 +1993,119 @@ def phase_all(seed: int = 0) -> dict:
     return rec
 
 
+# The milestone ladder's config 3 at its full width (320x240, 128^3 volumes of
+# 2.4 cm, 96 raycast steps, clouds of 1 << 16 rows, batches of 16), cut in depth
+# to 4 fragments of K = 50: the first 201 frames of its 2550-frame orbit.
+MILESTONE_FRAMES = 201
+MILESTONE_SWEEP = 2 * np.pi * MILESTONE_FRAMES / 2550  # the first 201 frames of the full orbit
+MILESTONE_ATE_M = SCENE_ATE_M
+MILESTONE_CAPACITY = 1 << 16
+
+
+def milestones_path(dev, tmp: str, frames: int = MILESTONE_FRAMES, argv=(), overrides=None) -> dict:
+    """``tools/milestones.py``'s config 3, config 4 slac and config 4n functions
+    under ``tmp`` (``frames`` frames; ``argv``: more of its flags; ``overrides``:
+    attributes set on its parsed arguments), then on config 3's directory the
+    ``register`` verb once under ``--profile``, ``tools/ring_scale.py`` at world
+    size 1 over every fragment and ``tools/reg_profile.py``. Returns the records,
+    the walls, the trace's event counts and the launches by shape of all of it."""
+    from elasticreconstruction_tpu_torch.tools import milestones as ms
+    from elasticreconstruction_tpu_torch.tools import reg_profile, ring_scale
+
+    root = os.path.join(tmp, "ladder")
+    args = ms.build_parser().parse_args(["--frames", str(frames), "--device", str(dev), "--out", root,
+                                         "--results", os.path.join(tmp, "milestones.json"), *argv])
+    for key, value in (overrides or {}).items():
+        setattr(args, key, value)
+    rec = {}
+    t0 = time.perf_counter()
+    ms.main_dataset(Path(root), args, dev)
+    rec["generate_s"] = time.perf_counter() - t0
+    reset_launch_counts()
+    configs = (("config3_full_rigid", ms.run_config3),
+               ("config4_slac", lambda r, a, d: ms.run_config4(r, a, d, "slac")),
+               ("config4_nonrigid_deformed", ms.run_deformed))
+    for name, fn in configs:
+        synchronize(dev)
+        t0 = time.perf_counter()
+        rec[name] = fn(Path(root), args, dev)
+        synchronize(dev)
+        rec[name]["seconds"] = time.perf_counter() - t0
+    out_full = os.path.join(root, "out_full")
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    run_verb(["register", "--out", out_full, "--profile", trace_dir, "--device", str(dev)])
+    rec["register_profiled_s"] = time.perf_counter() - t0
+    traces = sorted(Path(trace_dir, "register").glob("*.json"))
+    if len(traces) != 1:
+        fail(f"register --profile wrote {len(traces)} trace files under {trace_dir}/register, want 1")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    rec["trace"] = {"mb": traces[0].stat().st_size / 1e6, "events": len(events), "kernel_events": len(kernels),
+                    "nearest_kernel_events": sum("nearest_kernel" in e.get("name", "") for e in kernels)}
+    t0 = time.perf_counter()
+    rec["ring_scale"] = ring_scale.run([os.path.join(out_full, "fragments")], stride=1, ranks=1,
+                                       backend="nccl" if dev.type == "cuda" else "gloo", device=dev)
+    rec["ring_scale_s"] = time.perf_counter() - t0
+    prof = reg_profile.profile(out_full, 16, dev)
+    rec["reg_profile"] = {run: {k: prof[run][k] for k in ("pairs", "seconds", "prep_seconds", "dispatch_seconds",
+                                                         "drain_seconds", "io_seconds", "pairs_per_second")}
+                          for run in ("cold", "warm")}
+    rec["launches"] = launch_counts()
+    rec["launches_by_shape"] = launches_by_shape()
+    from elasticreconstruction_tpu_torch.pipeline.stages import load_fragment_clouds
+
+    clouds = load_fragment_clouds(ms.base_cfg(Path(root), args))
+    rec["cloud_points"] = [int(c.mask.sum()) for c in clouds]
+    return rec
+
+
+def phase_milestones() -> dict:
+    """The milestone ladder's main path (``milestones_path``) on the card:
+    config 3's ATE under ``MILESTONE_ATE_M``, the trace holding CUDA kernel
+    events with ``nearest_kernel`` among them, every wanted pair of the ring in
+    a lane; then ``nearest_batch`` at the ladder's harvest shape, (1, 65536,
+    65536) with as many valid refs as its clouds hold, against its plain version.
+    One JSON line ``{"milestones_path": ...}``."""
+    from elasticreconstruction_tpu_torch.kernels.cuda import nn
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = milestones_path(dev, tmp, overrides={"sweep": MILESTONE_SWEEP})
+    require_launched("milestones", rec["launches"], ["nearest_batch"])
+    points = int(np.mean(rec["cloud_points"]))
+    rec["nearest_ladder_shape"] = check_nearest_at_harvest_shape(
+        np.random.default_rng(2), dev, MILESTONE_CAPACITY, points, "ladder harvest",
+        -(-MILESTONE_CAPACITY // nn.MAX_RANGE))
+    c3 = rec["config3_full_rigid"]
+    summary = {
+        "frames": MILESTONE_FRAMES, "cloud_points": rec["cloud_points"], "generate_s": rec["generate_s"],
+        **{name: rec[name] for name in ("config3_full_rigid", "config4_slac", "config4_nonrigid_deformed")},
+        "register_profiled_s": rec["register_profiled_s"], "trace": rec["trace"],
+        "ring_scale": {k: v for k, v in rec["ring_scale"].items() if k != "success_pairs"},
+        "ring_scale_s": rec["ring_scale_s"], "reg_profile": rec["reg_profile"],
+        "launches": rec["launches"], "launches_by_shape": rec["launches_by_shape"],
+        "nearest_ladder_shape": rec["nearest_ladder_shape"],
+    }
+    print(json.dumps({"milestones_path": summary}))
+    faults = []
+    if not c3["ate_rmse"] < MILESTONE_ATE_M:
+        faults.append(f"config 3 cut to {MILESTONE_FRAMES} frames: ATE {c3['ate_rmse']:.4f} m >= {MILESTONE_ATE_M}")
+    if not (rec["trace"]["kernel_events"] > 0 and rec["trace"]["nearest_kernel_events"] > 0):
+        faults.append(f"the register trace holds no CUDA kernel events of nearest_kernel: {rec['trace']}")
+    if rec["ring_scale"]["pairs_missing"] or rec["ring_scale"]["pairs_in_two_lanes"]:
+        faults.append(f"ring_scale: {rec['ring_scale']['pairs_missing']} pairs missing, "
+                      f"{rec['ring_scale']['pairs_in_two_lanes']} in two lanes")
+    numbers = [c3["ate_rmse"], rec["config4_slac"]["ate_rmse"],
+               rec["config4_nonrigid_deformed"]["surface_improvement"]]
+    if not np.isfinite(np.asarray(numbers, float)).all():
+        faults.append(f"non-finite ladder numbers {numbers}")
+    if faults:
+        fail("milestones path: " + "; ".join(faults))
+    return rec
+
+
 def shard_inputs(tmp: str, frag: dict, scene: dict, graph: dict) -> dict:
     """The distributed phase's inputs, on the host: the ``bench.py`` workload
     (6 fragments of 20 000 points, prepped on the card) with one batch of
@@ -2445,6 +2572,10 @@ def main() -> int:
         phase_done("elastic path")
     by_path["all"] = phase_all()["launches"]
     phase_done("all verb")
+    ladder = phase_milestones()
+    by_path["milestones"] = ladder["launches"]
+    parity["nearest_batch"]["by_shape"].append(ladder["nearest_ladder_shape"])
+    phase_done("milestones path")
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -98,11 +98,19 @@ def project_uv(x, y, z, intr: Intrinsics):
     return (u, v), valid
 
 
+def _clipped_index(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``clip(x, 0, n - 1)`` cast to int64, and clipped again: a NaN coordinate
+    (a pose that tracking lost) casts to no index at all, which the
+    reference's gather clamps into range; so does this, and the caller's
+    validity mask (false for NaN) drops the sample."""
+    return torch.clip(x, 0, n - 1).to(torch.int64).clamp_(0, n - 1)
+
+
 def pixel_index(u: torch.Tensor, v: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
     """Flat index ``v * W + u`` of the nearest pixel: round, clip, cast, in the
     reference's order (``kernels/tsdf.py``, ``odometry/kinfu.py``)."""
-    ui = torch.clip(torch.round(u), 0, intr.width - 1).to(torch.int64)
-    vi = torch.clip(torch.round(v), 0, intr.height - 1).to(torch.int64)
+    ui = _clipped_index(torch.round(u), intr.width)
+    vi = _clipped_index(torch.round(v), intr.height)
     return vi * intr.width + ui
 
 
@@ -114,8 +122,8 @@ def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     h, w = img.shape[0], img.shape[1]
     u = torch.clip(uv[..., 0], 0.0, w - 1.0)
     v = torch.clip(uv[..., 1], 0.0, h - 1.0)
-    u0 = torch.floor(u).to(torch.int64)
-    v0 = torch.floor(v).to(torch.int64)
+    u0 = _clipped_index(torch.floor(u), w)
+    v0 = _clipped_index(torch.floor(v), h)
     u1 = torch.clamp_max(u0 + 1, w - 1)
     v1 = torch.clamp_max(v0 + 1, h - 1)
     du = u - u0.to(u.dtype)
@@ -134,8 +142,8 @@ def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 def nearest_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbor sample (for depth maps, where bilinear mixes surfaces)."""
     h, w = img.shape[0], img.shape[1]
-    u = torch.clip(torch.round(uv[..., 0]), 0, w - 1).to(torch.int64)
-    v = torch.clip(torch.round(uv[..., 1]), 0, h - 1).to(torch.int64)
+    u = _clipped_index(torch.round(uv[..., 0]), w)
+    v = _clipped_index(torch.round(uv[..., 1]), h)
     return img[v, u]
 
 

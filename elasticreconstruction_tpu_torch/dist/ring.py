@@ -50,6 +50,22 @@ def pair_key(base: int, i: int, j: int, num_hypotheses: int, sample_size: int = 
     return _ransac.draw_hypotheses(1, num_hypotheses, gen, "cpu", sample_size)[0]
 
 
+def lanes_wanted(world: int, f: int) -> np.ndarray:
+    """Which lanes of :func:`register_all_pairs_ring`'s output at ``world`` ranks
+    over ``f`` fragments are unmasked, in its order (rank, step, resident x
+    travelling): the rules of the ring, on the host."""
+    fl, steps = f // world, world // 2 + 1
+    lane = np.arange(world * steps * fl * fl)
+    r, s, k = lane // (steps * fl * fl), (lane // (fl * fl)) % steps, lane % (fl * fl)
+    ii, base = r * fl + k // fl, ((r + s) % world) * fl
+    jj = base + k % fl
+    lo, hi = np.minimum(ii, jj), np.maximum(ii, jj)
+    want = (hi > lo + 1) & ((s != 0) | (jj > ii))
+    if world % 2 == 0:
+        want &= (s != world // 2) | (r * fl < base)
+    return want
+
+
 def _blocks(prepped: PreppedFragments) -> list[torch.Tensor]:
     return [*prepped.coarse, prepped.features, *prepped.fine]
 
@@ -65,6 +81,7 @@ def register_all_pairs_ring(
     *,
     draws_for: Callable[[int, int], torch.Tensor] | None = None,
     fused_step: bool = False,
+    lane_batch: int | None = None,
     group: dist.ProcessGroup | None = None,
     device="cuda",
 ) -> RegistrationResult:
@@ -75,7 +92,9 @@ def register_all_pairs_ring(
     repeats and ignore their pairs). Returns the flat
     ``(D * n_steps * fl * fl)`` lane batch, in rank then step order, on every
     rank; masked lanes report ``success = False``, every wanted pair appears
-    in exactly one unmasked lane.
+    in exactly one unmasked lane. ``lane_batch`` registers a step's
+    ``fl * fl`` lanes in batches of at most that many (default: one batch),
+    which bounds the registration's temporaries when blocks are large.
     """
     dev = resolve_device(device)
     group = group_or_world(group)
@@ -112,10 +131,15 @@ def register_all_pairs_ring(
 
         rep_i, rep_j = pick(True), pick(False)  # rep_i: the fragment with the smaller id
         draws = torch.stack([draws_for(int(a), int(b)) for a, b in zip(lo, hi)])
-        res = _register_core(
-            rep_i.coarse, rep_i.features, rep_j.coarse, rep_j.features, rep_i.fine, rep_j.fine,
-            config, (lo.to(dev, torch.int32), hi.to(dev, torch.int32)), None, draws, fused_step,
-        )
+        parts, chunk = [], lane_batch or fl * fl
+        for a in range(0, fl * fl, chunk):
+            k = slice(a, a + chunk)
+            pi, pj = rep_i.take(k), rep_j.take(k)
+            parts.append(_register_core(
+                pi.coarse, pi.features, pj.coarse, pj.features, pi.fine, pj.fine,
+                config, (lo[k].to(dev, torch.int32), hi[k].to(dev, torch.int32)), None, draws[k], fused_step,
+            ))
+        res = RegistrationResult(*(torch.cat(xs) for xs in zip(*parts)))
         # Non-adjacent pairs; at s = 0 the travelling block IS the resident
         # one, so each intra-block pair sits in two lanes: keep the unswapped.
         want = (hi > lo + 1) & ((s != 0) | (jj > ii))

@@ -1,7 +1,9 @@
-"""FPFH (Fast Point Feature Histogram) descriptors from radius neighbourhoods.
+"""FPFH (Fast Point Feature Histogram) descriptors.
 
-Counterpart of ``elasticreconstruction_tpu/kernels/fpfh.py::fpfh_radius``
-(the reference computes 33-D FPFH with PCL ``FPFHEstimationOMP``). Two
+Counterpart of ``elasticreconstruction_tpu/kernels/fpfh.py``: the radius
+variant :func:`fpfh_radius`, which registration runs, and the k-NN variant
+:func:`fpfh` (the reference computes 33-D FPFH with PCL
+``FPFHEstimationOMP``). For the radius variant, two
 blocked all-pairs passes over 256-query blocks: pass 1 accumulates each
 point's SPFH histogram over in-radius pairs, pass 2 mixes neighbour SPFHs with
 inverse-distance weights as one ``(B, N) @ (N, 33)`` matmul. Only block rows
@@ -17,7 +19,8 @@ import math
 
 import torch
 
-from ..core.types import PointCloud
+from ..core.types import PointCloud, f32_reciprocal
+from . import knn as _knn
 
 N_BINS = 11
 FEATURE_DIM = 3 * N_BINS
@@ -114,3 +117,58 @@ def fpfh_radius(cloud: PointCloud, radius: float, *, block_size: int = 256) -> t
         cnt.append(w.to(torch.float32).sum(1))
     out = _normalize_blocks(spfh + torch.cat(mixed) / torch.cat(cnt).clamp_min(1.0)[:, None])
     return torch.where((mask & valid_ref)[:, None], out, 0.0)
+
+
+def _pair_features(p, n_p, q, n_q):
+    """Darboux-frame angles (alpha, phi, theta) of point pairs; inputs ``(..., 3)``."""
+    dp = q - p
+    d = torch.linalg.norm(dp, dim=-1)
+    dpn = dp / torch.where(d > 1e-9, d, 1.0)[..., None]
+    u = n_p.expand_as(dpn)
+    v = torch.linalg.cross(dpn, u, dim=-1)
+    v_len = torch.linalg.norm(v, dim=-1, keepdim=True)
+    v = v / torch.where(v_len > 1e-9, v_len, 1.0)
+    w = torch.linalg.cross(u, v, dim=-1)
+    alpha = (v * n_q).sum(-1)  # in [-1, 1]
+    phi = (u * dpn).sum(-1)  # in [-1, 1]
+    theta = torch.atan2((w * n_q).sum(-1), (u * n_q).sum(-1))  # [-pi, pi]
+    return alpha, phi, theta
+
+
+def _bin_onehot(value: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """One-hot ``N_BINS`` vectors of ``value`` over ``[lo, hi]``; the division by
+    the constant width is a multiply by its f32 reciprocal, as XLA compiles it."""
+    scaled = (value - lo) * f32_reciprocal(hi - lo) * N_BINS
+    b = scaled.clamp(0, N_BINS - 1e-4).to(torch.int64)
+    return torch.nn.functional.one_hot(b, N_BINS).to(torch.float32)
+
+
+def fpfh(cloud: PointCloud, k: int = 32, radius: float | None = None) -> torch.Tensor:
+    """33-D FPFH ``(N, 33)`` from each point's ``k`` nearest valid neighbours.
+
+    The normals must be set (:func:`..normals.estimate_normals`). The self
+    pair and padding drop out by their zero / infinite distance; ``radius``
+    masks out farther neighbours. Invalid points get a zero descriptor.
+    """
+    pts, nrm, mask = cloud.points, cloud.normals, cloud.mask
+    d2, idx = _knn.knn(pts, pts, mask, k=k)
+    idx = idx.long()
+    nbr_valid = torch.isfinite(d2) & (d2 > 1e-12)
+    if radius is not None:
+        nbr_valid &= d2 <= radius * radius
+    alpha, phi, theta = _pair_features(pts[:, None, :], nrm[:, None, :], pts[idx], nrm[idx])
+    w = nbr_valid.to(torch.float32)[..., None]
+    hist = torch.cat(
+        [
+            (_bin_onehot(alpha, -1.0, 1.0) * w).sum(-2),
+            (_bin_onehot(phi, -1.0, 1.0) * w).sum(-2),
+            (_bin_onehot(theta, -math.pi, math.pi) * w).sum(-2),
+        ],
+        -1,
+    )
+    spfh = _normalize_blocks(hist)
+    # FPFH(p) = SPFH(p) + (1/k_valid) sum_i SPFH(q_i) / dist_i
+    inv_w = torch.where(nbr_valid, 1.0 / torch.sqrt(d2).clamp_min(1e-6), 0.0)
+    k_valid = nbr_valid.to(torch.float32).sum(-1, keepdim=True).clamp_min(1.0)
+    mixed = spfh + torch.einsum("nk,nkf->nf", inv_w, spfh[idx]) / k_valid
+    return torch.where(mask[:, None], _normalize_blocks(mixed), 0.0)

@@ -1,9 +1,11 @@
-"""Surface-normal estimation by radius-neighbourhood PCA.
+"""Surface-normal estimation by neighbourhood PCA.
 
-Counterpart of ``elasticreconstruction_tpu/kernels/normals.py::estimate_normals_radius``
-(the reference calls PCL ``NormalEstimationOMP``, a radius search plus
-per-point PCA). Instead of neighbour lists it accumulates each point's
-neighbourhood moments with one blocked ``(B, N) @ (N, 10)`` matmul:
+Counterpart of ``elasticreconstruction_tpu/kernels/normals.py``: the radius
+variant :func:`estimate_normals_radius`, which registration runs, and the k-NN
+variant :func:`estimate_normals` (the reference calls PCL
+``NormalEstimationOMP``, a radius search plus per-point PCA). Instead of
+neighbour lists the radius variant accumulates each point's neighbourhood
+moments with one blocked ``(B, N) @ (N, 10)`` matmul:
 
     w_ij = [|p_i - p_j| <= r] * valid_j
     (S0, S1, S2)_i = sum_j w_ij * (1, p_j, p_j p_j^T)
@@ -18,6 +20,7 @@ import torch
 
 from ..core.types import PointCloud
 from . import eigen33 as _eigen33
+from . import knn as _knn
 
 
 def estimate_normals_radius(
@@ -80,5 +83,40 @@ def estimate_normals_radius(
     flip = (nrm * (vp[None, :] - pts)).sum(-1, keepdim=True) < 0
     nrm = torch.where(flip, -nrm, nrm)
     degenerate = (mom[:, 9] < min_neighbors) | ~mask | ~ok
+    nrm = torch.where(degenerate[:, None], 0.0, nrm)
+    return PointCloud(points=pts, normals=nrm, mask=mask)
+
+
+def estimate_normals(
+    cloud: PointCloud,
+    k: int = 16,
+    radius: float | None = None,
+    viewpoint: torch.Tensor | None = None,
+) -> PointCloud:
+    """PCA normal per point from its ``k`` nearest valid neighbours (self included).
+
+    ``radius`` masks out neighbours farther than it (PCL's radius search with
+    a ``k`` cap). Normals point toward ``viewpoint`` (default: the origin);
+    points with fewer than 3 neighbours, and invalid points, get a zero normal
+    but stay in the mask.
+    """
+    pts, mask = cloud.points, cloud.mask
+    d2, idx = _knn.knn(pts, pts, mask, k=k)
+    nbr_valid = torch.isfinite(d2)
+    if radius is not None:
+        nbr_valid &= d2 <= radius * radius
+    nbr = pts[idx.long()]  # (N, k, 3)
+    w = nbr_valid.to(pts.dtype)
+    cnt = w.sum(-1, keepdim=True)
+    mu = (nbr * w[..., None]).sum(-2) / cnt.clamp_min(1.0)
+    centered = (nbr - mu[:, None, :]) * w[..., None]
+    cov = torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None].clamp_min(1.0)
+    # Batched 3x3 symmetric eigendecomposition; the smallest eigenvector is the normal.
+    _, vecs = torch.linalg.eigh(cov)
+    nrm = vecs[..., 0]
+    vp = torch.zeros(3, dtype=pts.dtype, device=pts.device) if viewpoint is None else viewpoint
+    flip = (nrm * (vp[None, :] - pts)).sum(-1, keepdim=True) < 0
+    nrm = torch.where(flip, -nrm, nrm)
+    degenerate = (cnt[..., 0] < 3) | ~mask
     nrm = torch.where(degenerate[:, None], 0.0, nrm)
     return PointCloud(points=pts, normals=nrm, mask=mask)

@@ -6,14 +6,19 @@ Counterpart of ``elasticreconstruction_tpu/pipeline/run.py``, with its verbs
 stage's file artifacts under ``--out`` (``synth`` writes the dataset under
 ``--data``). Stages run on ``--device`` (default ``cuda``, which raises if no
 card is present), in every ``--slac-mode`` (default ``slac``, as the
-reference's). The reference's ``--profile`` (a ``jax.profiler`` trace) is not
-ported.
+reference's). ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
+the stage under ``DIR/<stage>/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
+import time
+from pathlib import Path
+
+import torch
 
 from ..elastic.slac import SlacConfig
 from ..odometry.fragments import FragmentConfig
@@ -54,6 +59,14 @@ def build_parser() -> argparse.ArgumentParser:
         default="full",
         choices=["full", "fast"],
         help="fast = reduced capacities/hypotheses for quick looks & CI",
+    )
+    p.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="write a torch.profiler Chrome trace of the stage under DIR/<stage>/ (one file a "
+        "stage run; open it in Perfetto or chrome://tracing). A fragments trace is large: "
+        "about 11 700 kernels a frame",
     )
     p.add_argument("--odometry-only", action="store_true", help="register: skip loop candidates")
     # synth options
@@ -106,6 +119,28 @@ def synth_intrinsics(size: str):
     return cam.Intrinsics(fx=f, fy=f, cx=w / 2 - 0.5, cy=h / 2 - 0.5, width=w, height=h)
 
 
+@contextlib.contextmanager
+def profiled(trace_dir: Path | None, device: torch.device):
+    """A ``torch.profiler`` trace of the enclosed work, written on exit as one
+    Chrome trace ``trace_<time>.json`` under ``trace_dir`` (nothing when it is
+    None). CPU activity always; CUDA activity too when ``device`` is a card,
+    so the trace holds the kernels' device spans (CUPTI)."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(str(trace_dir / f"trace_{time.strftime('%Y%m%d-%H%M%S')}.json"))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.stage == "synth":
@@ -115,20 +150,24 @@ def main(argv=None) -> int:
         return 0
     cfg = config_from_args(args)
     ds = Dataset(args.data) if args.stage in ("fragments", "integrate", "evaluate", "all") else None
-    if args.stage == "fragments":
-        run_fragments(ds, cfg, device=args.device)
-    elif args.stage == "register":
-        run_registration(cfg, all_pairs=not args.odometry_only, device=args.device)
-    elif args.stage == "posegraph":
-        run_posegraph(cfg, device=args.device)
-    elif args.stage == "optimize":
-        run_optimize(cfg, spill_corres=args.spill_corres, spill_deformed=args.spill_deformed, device=args.device)
-    elif args.stage == "integrate":
-        run_integrate(ds, cfg, device=args.device)
-    elif args.stage == "evaluate":
-        run_evaluate(ds, cfg, device=args.device)
-    elif args.stage == "all":
-        run_all(ds, cfg, device=args.device)
+    trace_dir = Path(args.profile) / args.stage if args.profile else None
+    with profiled(trace_dir, torch.device(args.device)):
+        if args.stage == "fragments":
+            run_fragments(ds, cfg, device=args.device)
+        elif args.stage == "register":
+            run_registration(cfg, all_pairs=not args.odometry_only, device=args.device)
+        elif args.stage == "posegraph":
+            run_posegraph(cfg, device=args.device)
+        elif args.stage == "optimize":
+            run_optimize(cfg, spill_corres=args.spill_corres, spill_deformed=args.spill_deformed, device=args.device)
+        elif args.stage == "integrate":
+            run_integrate(ds, cfg, device=args.device)
+        elif args.stage == "evaluate":
+            run_evaluate(ds, cfg, device=args.device)
+        elif args.stage == "all":
+            run_all(ds, cfg, device=args.device)
+    if trace_dir is not None:
+        print(f"profiler trace written under {trace_dir}")
     return 0
 
 

@@ -58,6 +58,9 @@ def test_import_pulls_in_no_jax():
         "import elasticreconstruction_tpu_torch.dist.ring, elasticreconstruction_tpu_torch.dist.dryrun\n"
         "import elasticreconstruction_tpu_torch.dist.pgo_dist, elasticreconstruction_tpu_torch.dist.slac_dist\n"
         "import elasticreconstruction_tpu_torch.dist.volume_sharding, elasticreconstruction_tpu_torch.dist.pair_sharding\n"
+        "import elasticreconstruction_tpu_torch.tools.milestones, elasticreconstruction_tpu_torch.tools.ring_scale\n"
+        "import elasticreconstruction_tpu_torch.tools.reg_profile, elasticreconstruction_tpu_torch.tools.sweep_fragopt\n"
+        "import elasticreconstruction_tpu_torch.tools.slac_oracle\n"
         "import kernels_bench_gpu, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m == 'elasticreconstruction_tpu' or m.startswith('elasticreconstruction_tpu.')\n"
@@ -201,6 +204,33 @@ def test_dist_entry_points_default_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="cuda|nccl"):
             call()
     assert not dist.is_initialized()
+
+
+def test_tool_entry_points_default_to_the_card(tmp_path):
+    """The ladder, ring_scale and the three tools default to ``--device cuda``
+    and raise where there is no card, before writing anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    from elasticreconstruction_tpu_torch.bench_scene import write_fragments_dir
+    from elasticreconstruction_tpu_torch.tools import milestones, reg_profile, ring_scale, slac_oracle, sweep_fragopt
+
+    write_fragments_dir(tmp_path, 3, n=200)
+    out, results = tmp_path / "ladder", tmp_path / "milestones_gpu.json"
+    for call in (
+        lambda: milestones.main(["--out", str(out), "--results", str(results)]),
+        lambda: ring_scale.main([str(tmp_path / "fragments"), "--out", str(tmp_path / "ring.json")]),
+        lambda: ring_scale.main([str(tmp_path / "fragments"), "--backend", "gloo", "--out", str(tmp_path / "r.json")]),
+        lambda: reg_profile.main([str(tmp_path)]),
+        lambda: sweep_fragopt.main(["nonrigid", "--root", str(tmp_path)]),
+        lambda: slac_oracle.main([str(tmp_path), str(tmp_path)]),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not out.exists() and not results.exists()
+    assert not (tmp_path / "ring.json").exists() and not (tmp_path / "registration").exists()
+    assert not (tmp_path / "slac").exists()
+    for parser in (milestones.build_parser(), ring_scale.build_parser(), reg_profile.build_parser()):
+        assert parser.get_default("device") == "cuda"
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():
