@@ -10,9 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    parallel).
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    plus CUDA-event times of the kernel, the plain version and, where there is
-   one, a library yardstick. The two pipeline kernels are held at every shape
+   one, a library yardstick; a kernel's bound counts only the valid refs,
+   which is all its function needs to scan. The two pipeline kernels are held at every shape
    the paths launch them at (``NN_SHAPES``, ``ICP_SHAPES``, ``DIST_NN_SHAPES``,
-   with a partly masked ref set) and at ragged ones: sizes that are multiples of nothing,
+   ``MILESTONE_NN_SHAPES``, with a partly masked ref set) and at ragged ones: sizes that are multiples of nothing,
    fewer refs than one chunk, one batch, refs all masked (which must give
    (3e38, 0)) and duplicated refs (the first index must win). Every call is
    made twice and must give the same bits. Their compiled main loop's opcode
@@ -382,6 +383,10 @@ ICP_SHAPES = [(16, 4096, 8192), (16, 1024, 8192), (8, 1024, 8192), (8, 4096, 819
 # rank at world size 2); its 16-lane ring steps are among the shapes above.
 DIST_NN_SHAPES = [(64, 4096, 8192), (64, 1024, 8192), (64, 8192, 8192), (8, 8192, 8192), (4, 4096, 8192),
                   (4, 1024, 8192), (4, 8192, 8192), (2, 4096, 8192), (2, 1024, 8192), (2, 8192, 8192)]
+# The milestones path's other batches: the 4-fragment cut's 3 non-adjacent
+# pairs in one batch, and its single-pair queries; its 16-lane ring steps are
+# among NN_SHAPES, its harvest is held by check_nearest_at_harvest_shape.
+MILESTONE_NN_SHAPES = [(3, 1024, 8192), (3, 2048, 8192), (3, 4096, 8192), (3, 8192, 8192), (1, 8192, 8192)]
 # The correspondence harvest's query: fragment clouds padded to the full
 # preset's capacity, about as full as config 3's (54-61k points, PERF.md).
 HARVEST_CAPACITY = 1 << 17
@@ -443,7 +448,8 @@ def check_nearest(q, r, m, *, time_plain: bool = False, note: str = "") -> dict:
     one_call = call_ms(lambda: nn.nearest_batch(q, r, m))
     plain = cuda_ms(lambda: nn.nearest_batch_plain(q, r, m), reps=3, warmup=1) if time_plain else None
     lib = cuda_ms(lambda: torch.cdist(q, r_far, compute_mode="use_mm_for_euclid_dist").min(dim=-1), reps=5)
-    bnd, by = bound_ms(NN_OPS_PER_PAIR * b * nq * nr, 4 * 3 * b * (nq + nr) + b * nr + 8 * b * nq)
+    valid = int(m.sum())  # the scan needs only the valid refs
+    bnd, by = bound_ms(NN_OPS_PER_PAIR * nq * valid, 4 * 3 * (b * nq + valid) + b * nr + 8 * b * nq)
     print(f"  ms kernel {ms:.4f} (one call on an idle card, wrapper included: {one_call:.4f}), "
           f"plain {'not timed' if plain is None else f'{plain:.4f}'}, "
           f"cdist+min {lib:.4f}, bound {bnd:.4f} ({by}), time/bound {ms / bnd:.2f}")
@@ -487,8 +493,9 @@ def check_normal_eqs(args: list, *, time_plain: bool = False, note: str = "") ->
     one_call = call_ms(lambda: icp_step.normal_eqs_batch(*args, max_dist=ICP_MAX_DIST))
     plain = (cuda_ms(lambda: icp_step.normal_eqs_batch_plain(*args, max_dist=ICP_MAX_DIST), reps=3, warmup=1)
              if time_plain else None)
-    bnd, by = bound_ms(NN_OPS_PER_PAIR * b * n * m + ICP_OPS_PER_QUERY * b * n,
-                       4 * (4 * b * n + 6 * b * m) + b * m + 4 * 29 * b)
+    valid = int(args[4].sum())  # the scan needs only the valid refs
+    bnd, by = bound_ms(NN_OPS_PER_PAIR * n * valid + ICP_OPS_PER_QUERY * b * n,
+                       4 * (4 * b * n + 6 * valid) + b * m + 4 * 29 * b)
     print(f"  ms kernel {ms:.4f} (one call on an idle card, wrapper included: {one_call:.4f}), "
           f"plain {'not timed' if plain is None else f'{plain:.4f}'}, "
           f"bound {bnd:.4f} ({by}), time/bound {ms / bnd:.2f}")
@@ -629,7 +636,7 @@ def check_nearest_at_harvest_shape(rng, dev, capacity: int = HARVEST_CAPACITY, p
     qk, r_far = q[:, :k], torch.where(m[..., None], r, 1e18)
     plain = cuda_ms(lambda: nn.nearest_batch_plain(qk, r, m), reps=2, warmup=1)
     lib = cuda_ms(lambda: torch.cdist(qk, r_far, compute_mode="use_mm_for_euclid_dist").min(dim=-1), reps=3)
-    bnd, by = bound_ms(NN_OPS_PER_PAIR * n * n, 4 * 3 * 2 * n + n + 8 * n)
+    bnd, by = bound_ms(NN_OPS_PER_PAIR * n * points, 4 * 3 * (n + points) + n + 8 * n)
     valid_share = points / n
     print(f"  ms kernel {ms:.4f} (one call {one_call:.4f}), bound {bnd:.4f} ({by}), time/bound {ms / bnd:.2f}; "
           f"over {k} queries: plain {plain:.4f}, cdist+min {lib:.4f}; valid refs {valid_share:.3f} of those scanned")
@@ -645,6 +652,7 @@ def phase_kernel_parity() -> dict:
     print_main_loops()
     nn_by_shape = [check_nearest(*nn_inputs(rng, *shape, dev), time_plain=True) for shape in NN_SHAPES]
     nn_by_shape += [check_nearest(*nn_inputs(rng, *shape, dev)) for shape in DIST_NN_SHAPES]
+    nn_by_shape += [check_nearest(*nn_inputs(rng, *shape, dev), time_plain=True) for shape in MILESTONE_NN_SHAPES]
     nn_by_shape.append(check_nearest_at_harvest_shape(rng, dev))
     icp_by_shape = [check_normal_eqs(icp_inputs(rng, *shape, dev), time_plain=True) for shape in ICP_SHAPES]
     for shape in RAGGED_SHAPES:
@@ -2263,27 +2271,11 @@ def shard_single(inp: dict, dev: torch.device) -> dict:
     return out
 
 
-def ring_lanes_wanted(world: int, f: int) -> np.ndarray:
-    """The ring's lane masks at ``world`` ranks over ``f`` fragments, in its
-    output order (rank, step, resident x travelling), from the rules of
-    ``dist/ring.py`` written out again: non-adjacent pairs, one ordering at
-    step 0, the mutual step of an even world on the lower base."""
-    fl, steps = f // world, world // 2 + 1
-    lane = np.arange(world * steps * fl * fl)
-    r, s, k = lane // (steps * fl * fl), (lane // (fl * fl)) % steps, lane % (fl * fl)
-    ii, base = r * fl + k // fl, ((r + s) % world) * fl
-    jj = base + k % fl
-    lo, hi = np.minimum(ii, jj), np.maximum(ii, jj)
-    want = (hi > lo + 1) & ((s != 0) | (jj > ii))
-    if world % 2 == 0:
-        want &= (s != world // 2) | (r * fl < base)
-    return want
-
-
 def ring_lanes_single(inp: dict, ring_res: dict, world: int, dev: torch.device) -> dict:
-    """``register_prepped_batch`` on the ring's lanes, one batch for each
-    (rank, step) as the ring ran them, with the same per-pair draws: the
-    ring must give these bits whatever its world size."""
+    """``register_prepped_batch`` on the ring's lanes, batched as the ring
+    ran them (each (rank, step) in batches of ``ring.LANE_BATCH``), with the
+    same per-pair draws and masked by ``ring.lanes_wanted``: the ring must
+    give these bits whatever its world size."""
     from elasticreconstruction_tpu_torch.dist import ring
     from elasticreconstruction_tpu_torch.registration import RegistrationConfig, register_prepped_batch
 
@@ -2291,14 +2283,16 @@ def ring_lanes_single(inp: dict, ring_res: dict, world: int, dev: torch.device) 
     per = (f // world) ** 2
     prepped8 = shard_case(inp, dev)["prepped8"]
     parts = []
-    for a in range(0, len(ring_res["i"]), per):
-        lo, hi = ring_res["i"][a:a + per], ring_res["j"][a:a + per]
-        parts.append(_host(register_prepped_batch(
-            prepped8, lo, hi, None, cfg, device=dev,
-            draws=torch.stack([ring.pair_key(SHARD_RING_BASE, int(x), int(y), cfg.num_hypotheses)
-                               for x, y in zip(lo, hi)]))))
+    for step in range(0, len(ring_res["i"]), per):
+        for a in range(step, step + per, ring.LANE_BATCH):
+            b = min(a + ring.LANE_BATCH, step + per)
+            lo, hi = ring_res["i"][a:b], ring_res["j"][a:b]
+            parts.append(_host(register_prepped_batch(
+                prepped8, lo, hi, None, cfg, device=dev,
+                draws=torch.stack([ring.pair_key(SHARD_RING_BASE, int(x), int(y), cfg.num_hypotheses)
+                                   for x, y in zip(lo, hi)]))))
     res = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-    res["success"] &= ring_lanes_wanted(world, f)
+    res["success"] &= ring.lanes_wanted(world, f)
     return res
 
 

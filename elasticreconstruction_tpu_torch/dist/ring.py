@@ -22,6 +22,8 @@ enumeration use the same draws for each pair. A travelling block's base is
 ``((rank + s) mod D) * F / D`` at step ``s``, which every rank knows, so only
 the block itself travels; the exchange after the last step is skipped, since
 its result would never be read (at world size 1 there is none at all).
+A step's ``fl * fl`` lanes are registered in batches of at most
+``LANE_BATCH``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ from ..registration.pair import PreppedFragments, RegistrationConfig, _register_
 from . import comm
 from .mesh import group_or_world, shard_bounds
 
+# Lanes registered in one batch. At world size 1 a step holds every pair of
+# the whole stack, and the RANSAC and ICP temporaries of all its lanes at once
+# would not fit on one card; 64 lanes peaked at 13.5 GiB on an H100 80GB HBM3
+# (PERF.md, dist paths). A step of 64 lanes or fewer is one batch.
+LANE_BATCH = 64
+
 
 def pair_key(base: int, i: int, j: int, num_hypotheses: int, sample_size: int = 3) -> torch.Tensor:
     """The RANSAC draws ``(H, sample_size)`` (int64, on the CPU) of pair
@@ -53,7 +61,10 @@ def pair_key(base: int, i: int, j: int, num_hypotheses: int, sample_size: int = 
 def lanes_wanted(world: int, f: int) -> np.ndarray:
     """Which lanes of :func:`register_all_pairs_ring`'s output at ``world`` ranks
     over ``f`` fragments are unmasked, in its order (rank, step, resident x
-    travelling): the rules of the ring, on the host."""
+    travelling): non-adjacent pairs; at step 0 the travelling block IS the
+    resident one, so each intra-block pair sits in two lanes and only the
+    unswapped one is kept; an even world's mutual step is kept on the side
+    with the lower base."""
     fl, steps = f // world, world // 2 + 1
     lane = np.arange(world * steps * fl * fl)
     r, s, k = lane // (steps * fl * fl), (lane // (fl * fl)) % steps, lane % (fl * fl)
@@ -81,7 +92,6 @@ def register_all_pairs_ring(
     *,
     draws_for: Callable[[int, int], torch.Tensor] | None = None,
     fused_step: bool = False,
-    lane_batch: int | None = None,
     group: dist.ProcessGroup | None = None,
     device="cuda",
 ) -> RegistrationResult:
@@ -92,9 +102,7 @@ def register_all_pairs_ring(
     repeats and ignore their pairs). Returns the flat
     ``(D * n_steps * fl * fl)`` lane batch, in rank then step order, on every
     rank; masked lanes report ``success = False``, every wanted pair appears
-    in exactly one unmasked lane. ``lane_batch`` registers a step's
-    ``fl * fl`` lanes in batches of at most that many (default: one batch),
-    which bounds the registration's temporaries when blocks are large.
+    in exactly one unmasked lane (:func:`lanes_wanted`).
     """
     dev = resolve_device(device)
     group = group_or_world(group)
@@ -110,6 +118,7 @@ def register_all_pairs_ring(
     resident = PreppedFragments(own.coarse.to(dev), own.features.to(dev), own.fine.to(dev))
     travel = _blocks(resident)
     n_steps = d // 2 + 1
+    wanted = torch.from_numpy(lanes_wanted(d, f).reshape(d, n_steps, fl * fl)[rank])
     # Lane k = (resident a, travelling b) with a = k // fl, b = k % fl.
     ia = torch.arange(fl).repeat_interleave(fl)
     ib = torch.arange(fl).repeat(fl)
@@ -131,21 +140,16 @@ def register_all_pairs_ring(
 
         rep_i, rep_j = pick(True), pick(False)  # rep_i: the fragment with the smaller id
         draws = torch.stack([draws_for(int(a), int(b)) for a, b in zip(lo, hi)])
-        parts, chunk = [], lane_batch or fl * fl
-        for a in range(0, fl * fl, chunk):
-            k = slice(a, a + chunk)
+        parts = []
+        for a in range(0, fl * fl, LANE_BATCH):
+            k = slice(a, a + LANE_BATCH)
             pi, pj = rep_i.take(k), rep_j.take(k)
             parts.append(_register_core(
                 pi.coarse, pi.features, pj.coarse, pj.features, pi.fine, pj.fine,
                 config, (lo[k].to(dev, torch.int32), hi[k].to(dev, torch.int32)), None, draws[k], fused_step,
             ))
         res = RegistrationResult(*(torch.cat(xs) for xs in zip(*parts)))
-        # Non-adjacent pairs; at s = 0 the travelling block IS the resident
-        # one, so each intra-block pair sits in two lanes: keep the unswapped.
-        want = (hi > lo + 1) & ((s != 0) | (jj > ii))
-        if d % 2 == 0 and s == d // 2:
-            want &= lo_f < trav_base
-        results.append(res._replace(success=res.success & want.to(dev)))
+        results.append(res._replace(success=res.success & wanted[s].to(dev)))
         if s + 1 < n_steps:
             travel = comm.ring_shift(travel, group)
     mine = RegistrationResult(*(torch.cat(xs) for xs in zip(*results)))

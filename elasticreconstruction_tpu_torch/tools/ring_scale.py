@@ -42,10 +42,6 @@ from ..registration import PreppedFragments, RegistrationConfig, prep_fragments_
 
 BASE_KEY = 7
 CAPACITY = 1 << 14
-# Lanes registered in one batch: at world size 1 a step holds every pair of
-# the whole stack (fl * fl lanes), whose RANSAC and ICP temporaries would not
-# fit on one card; 64 lanes peaked at 13.5 GiB on an H100 80GB HBM3 (PERF.md, dist paths).
-LANE_BATCH = 64
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,15 +90,17 @@ def _unflat(ts: list[torch.Tensor]) -> PreppedFragments:
     return PreppedFragments(PointCloud(*ts[:3]), ts[3], PointCloud(*ts[4:]))
 
 
-def ring_rank(rank: int, group, dev: torch.device, path: str, cfg: RegistrationConfig) -> dict:
+def ring_rank(rank: int, group, dev: torch.device, path: str, cfg: RegistrationConfig,
+              draws: np.ndarray | None = None) -> dict:
     """One rank's ring over the prep stack saved at ``path``: every rank's
     lanes (gathered), this rank's wall time and its peak device memory."""
     prepped = _unflat(torch.load(path, weights_only=True))
+    draws_for = None if draws is None else (lambda i, j: torch.from_numpy(draws[i, j]))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    res = ring.register_all_pairs_ring(prepped, BASE_KEY, cfg, lane_batch=LANE_BATCH, group=group, device=dev)
+    res = ring.register_all_pairs_ring(prepped, BASE_KEY, cfg, draws_for=draws_for, group=group, device=dev)
     out = {k: getattr(res, k).cpu().numpy() for k in ("i", "j", "success")}
     out["ring_seconds"] = time.time() - t0
     out["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" else None
@@ -110,9 +108,14 @@ def ring_rank(rank: int, group, dev: torch.device, path: str, cfg: RegistrationC
 
 
 def run(frag_dirs, *, stride: int = 2, ranks: int = 1, backend: str = "nccl", device="cuda",
-        cfg: RegistrationConfig = RegistrationConfig()) -> dict:
+        cfg: RegistrationConfig = RegistrationConfig(), draws: np.ndarray | None = None) -> dict:
     """Prep every fragment once on ``device``, run the ring at ``ranks`` ranks
-    under ``cfg`` and return the report (see the module docstring)."""
+    under ``cfg`` and return the report (see the module docstring).
+
+    ``draws``, an ``(F, F, H, 3)`` int64 table of the padded stack, gives pair
+    ``(lo, hi)`` the RANSAC draws ``draws[lo, hi]`` in place of
+    ``ring.pair_key``'s, so that the run can be held against another
+    implementation's draws."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)
@@ -139,14 +142,14 @@ def run(frag_dirs, *, stride: int = 2, ranks: int = 1, backend: str = "nccl", de
                 torch.cuda.empty_cache()
             mesh.init_group(backend, 1, 0, "file://" + os.path.join(tmp, "store"))
             try:
-                per_rank = [ring_rank(0, dist.group.WORLD, dev, path, cfg)]
+                per_rank = [ring_rank(0, dist.group.WORLD, dev, path, cfg, draws)]
             finally:
                 dist.destroy_process_group()
         else:
             devices = ([f"cuda:{r}" for r in range(ranks)] if dev.type == "cuda" and backend == "nccl"
                        else str(dev))
             # The ranks share this process's intra-op threads.
-            per_rank = mesh.spawn_ranks(ring_rank, ranks, backend, devices, path, cfg, timeout_s=3600.0,
+            per_rank = mesh.spawn_ranks(ring_rank, ranks, backend, devices, path, cfg, draws, timeout_s=3600.0,
                                         threads=max(1, torch.get_num_threads() // ranks))
     res = per_rank[0]
 

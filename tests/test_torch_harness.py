@@ -14,9 +14,14 @@ off the pipeline's path, and ``tools/ring_scale.py``, on the CPU.
 - ``run register --profile DIR --device cpu`` writes one Chrome trace under
   ``DIR/register/`` that parses as JSON, and prints where.
 - ``ring_scale.run`` at world size 2 under gloo, and at 1 with its lanes
-  registered in batches of 4, on two sequences' toy fragment directories:
-  every wanted pair in exactly one lane, and the successful pairs those of
-  the port's replicated enumeration with the same per-pair draws.
+  registered in batches of 4, on two sequences' toy fragment directories,
+  with the JAX ring's per-pair draws: every wanted pair in exactly one lane,
+  and the successful pairs those of the port's replicated enumeration and of
+  the JAX ring on ``make_mesh(2)`` over the same prep.
+- ``ring.lanes_wanted`` against that JAX ring's mask, wherever its
+  ``success`` shows the mask; the port's ring at world size 1 in batches of 4
+  against it pair by pair: transforms within 1e-3, information within 1e-3
+  relative.
 """
 
 from __future__ import annotations
@@ -207,20 +212,59 @@ def _windows(seed: int, f: int, n: int = 1200, slide: float = 0.3) -> list[np.nd
     return out
 
 
-@pytest.mark.parametrize("ranks,lane_batch", [(2, ring_scale.LANE_BATCH), (1, 4)], ids=["D2", "D1_batches_of_4"])
-def test_ring_scale_matches_the_replicated_enumeration(tmp_path, monkeypatch, ranks, lane_batch):
-    """At two spawned gloo ranks, and at one in this process with each step's
-    36 lanes registered 4 at a time (``ring_scale.LANE_BATCH``)."""
-    monkeypatch.setattr(ring_scale, "LANE_BATCH", lane_batch)
+@pytest.fixture(scope="module")
+def ring_case(tmp_path_factory):
+    """The two sequences' fragment directories; their prep by the port (as
+    ``ring_scale.run`` preps them); every (lo <= hi) pair's JAX draws
+    (``jax.random.randint`` under the JAX ring's ``pair_key``), as a table
+    ``ring_scale.run`` takes; and the JAX ring on ``make_mesh(2)`` over the
+    same prep."""
+    import jax
+
+    from elasticreconstruction_tpu.dist import make_mesh
+    from elasticreconstruction_tpu.dist import ring as j_ring
+    from elasticreconstruction_tpu.registration import pair as j_pair
+
+    root = tmp_path_factory.mktemp("ring_scale")
     dirs = []
     for s in range(2):
-        d = tmp_path / f"seq{s}" / "fragments"
+        d = root / f"seq{s}" / "fragments"
         d.mkdir(parents=True)
         for f, pts in enumerate(_windows(3 + s, 3)):
             io_logfmt.write_pcd(d / f"cloud_bin_{f}.pcd", pts, np.zeros_like(pts))
         dirs.append(str(d))
     cfg = RegistrationConfig(**RING_REG)
-    rep = ring_scale.run(dirs, stride=1, ranks=ranks, backend="gloo", device="cpu", cfg=cfg)
+    clouds, _ = ring_scale.load_clouds(dirs, 1)
+    prepped = prep_fragments_batch(clouds, cfg, device="cpu")
+    f = prepped.features.shape[0]
+    jcfg = j_pair.RegistrationConfig(**RING_REG)
+    jprep = j_pair.PreppedFragments(JCloud(*_j(*(x.numpy() for x in prepped.coarse))),
+                                    jnp.asarray(prepped.features.numpy()),
+                                    JCloud(*_j(*(x.numpy() for x in prepped.fine))))
+    base = jax.random.PRNGKey(ring_scale.BASE_KEY)
+    lo, hi = np.triu_indices(f)
+    keys = jax.vmap(lambda a, b: j_ring.pair_key(base, a, b))(jnp.asarray(lo), jnp.asarray(hi))
+    flat = np.array(jax.vmap(lambda k: jax.random.randint(k, (jcfg.num_hypotheses, 3), 0, 1 << 30))(keys))
+    draws = np.zeros((f, f, jcfg.num_hypotheses, 3), np.int64)
+    draws[lo, hi] = flat
+    jres = j_ring.register_all_pairs_ring(jprep, base, make_mesh(2), jcfg)
+    return {"dirs": dirs, "cfg": cfg, "jcfg": jcfg, "prepped": prepped, "f": f, "draws": draws,
+            "jax_ring": {k: np.asarray(v) for k, v in jres._asdict().items()}}
+
+
+def _success_pairs(res: dict) -> list[list[int]]:
+    return sorted([int(i), int(j)] for i, j, ok in zip(res["i"], res["j"], res["success"]) if ok)
+
+
+@pytest.mark.parametrize("ranks,lane_batch", [(2, t_ring.LANE_BATCH), (1, 4)], ids=["D2", "D1_batches_of_4"])
+def test_ring_scale_matches_the_replicated_enumeration(ring_case, monkeypatch, ranks, lane_batch):
+    """At two spawned gloo ranks, and at one in this process with each step's
+    36 lanes registered 4 at a time (``ring.LANE_BATCH``), with the JAX
+    ring's draws: the port's replicated enumeration and the JAX ring on
+    ``make_mesh(2)`` accept the same pairs."""
+    monkeypatch.setattr(t_ring, "LANE_BATCH", lane_batch)
+    cfg, dirs, draws = ring_case["cfg"], ring_case["dirs"], ring_case["draws"]
+    rep = ring_scale.run(dirs, stride=1, ranks=ranks, backend="gloo", device="cpu", cfg=cfg, draws=draws)
     f = rep["fragments"]
     assert (f, rep["fragments_padded"], rep["devices"]) == (6, 6, ranks)
     assert rep["lanes_per_device"] == {2: 18, 1: 36}[ranks]
@@ -228,14 +272,64 @@ def test_ring_scale_matches_the_replicated_enumeration(tmp_path, monkeypatch, ra
     assert rep["pairs_missing"] == 0 and rep["pairs_in_two_lanes"] == 0
     assert sum(rep["per_device_useful_pairs"]) == 10
     assert rep["memory_ratio_vs_replicated"] == 1.0 and rep["per_device_peak_bytes_ring"] is None
-    # The replicated enumeration of the same prep with the ring's per-pair draws.
-    clouds, _ = ring_scale.load_clouds(dirs, 1)
-    prepped = prep_fragments_batch(clouds, cfg, device="cpu")
+    # The replicated enumeration of the same prep with the same per-pair draws.
     pairs = [(i, j) for i in range(f) for j in range(i + 2, f)]
     lo, hi = torch.tensor([p[0] for p in pairs]), torch.tensor([p[1] for p in pairs])
-    draws = torch.stack([t_ring.pair_key(ring_scale.BASE_KEY, i, j, cfg.num_hypotheses) for i, j in pairs])
-    res = register_prepped_batch(prepped, lo, hi, None, cfg, draws=draws, device="cpu")
+    res = register_prepped_batch(ring_case["prepped"], lo, hi, None, cfg, device="cpu",
+                                 draws=torch.stack([torch.from_numpy(draws[i, j]) for i, j in pairs]))
     want = [list(p) for p, ok in zip(pairs, res.success.tolist()) if ok]
-    assert rep["success_pairs"] == want
+    assert rep["success_pairs"] == want == _success_pairs(ring_case["jax_ring"])
     assert rep["successes"] == len(want) and rep["successes_intra_sequence"] > 0
     assert rep["successes_cross_sequence"] == rep["successes"] - rep["successes_intra_sequence"]
+
+
+def test_ring_lanes_wanted_is_the_jax_rings_mask(ring_case):
+    """``ring.lanes_wanted(2, 6)`` against the JAX ring on ``make_mesh(2)``:
+    its unmasked lanes hold every wanted pair once in the JAX ring's lane
+    order, and on every lane whose registration passes the success criterion
+    (so that the JAX ring's ``success`` shows its mask) the JAX ring reports
+    success exactly where ``lanes_wanted`` keeps the lane. Such lanes include
+    adjacent pairs, the second ordering of intra-block pairs at step 0 and the
+    mutual step's copies on the higher-base rank, each of which must be masked."""
+    jr, cfg, f = ring_case["jax_ring"], ring_case["jcfg"], ring_case["f"]
+    want = t_ring.lanes_wanted(2, f)
+    assert want.shape == jr["i"].shape == (2 * 2 * (f // 2) ** 2,)
+    kept = sorted(zip(jr["i"][want].tolist(), jr["j"][want].tolist()))
+    assert kept == [(i, j) for i in range(f) for j in range(i + 2, f)]
+    passed = ((jr["num_inliers"] >= cfg.min_inliers) & (jr["fitness"] >= cfg.min_fitness)
+              & np.isfinite(jr["transform"]).all((1, 2)))
+    np.testing.assert_array_equal(jr["success"][passed], want[passed])
+    adjacent = np.abs(jr["j"] - jr["i"]) <= 1
+    dup = ~want & ~adjacent  # a wanted pair's other lane
+    assert (passed & want).any() and (passed & adjacent).any() and (passed & dup).any()
+    assert not jr["success"][~want].any()
+
+
+def test_ring_batches_of_4_match_the_jax_ring(ring_case, monkeypatch, tmp_path):
+    """The port's ring at world size 1, each step's 36 lanes registered 4 at a
+    time, against the JAX ring on the same prep and draws, pair by pair: the
+    same successes, transforms within 1e-3 and information within 1e-3
+    relative (the port against JAX, as ``tests/test_torch_ring.py``)."""
+    from elasticreconstruction_tpu_torch.dist import mesh as t_mesh
+
+    monkeypatch.setattr(t_ring, "LANE_BATCH", 4)
+    draws = ring_case["draws"]
+    group = t_mesh.init_group("gloo", 1, 0, "file://" + str(tmp_path / "store"))
+    try:
+        res = t_ring.register_all_pairs_ring(ring_case["prepped"], ring_scale.BASE_KEY, ring_case["cfg"],
+                                             draws_for=lambda i, j: torch.from_numpy(draws[i, j]),
+                                             group=group, device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+    got = {k: v.numpy() for k, v in res._asdict().items()}
+    jr = ring_case["jax_ring"]
+    assert _success_pairs(got) == _success_pairs(jr)
+
+    def by_pair(r):
+        return {(int(i), int(j)): k for k, (i, j, ok) in enumerate(zip(r["i"], r["j"], r["success"])) if ok}
+
+    jk = by_pair(jr)
+    for pair, k in by_pair(got).items():
+        np.testing.assert_allclose(got["transform"][k], jr["transform"][jk[pair]], atol=1e-3)  # tolerance: 1e-3
+        info = jr["information"][jk[pair]]
+        assert np.abs(got["information"][k] - info).max() / np.abs(info).max() < 1e-3  # tolerance: 1e-3 relative
