@@ -30,14 +30,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``fused_step=True``; every adjacent pair must register within 2 cm / 0.02 rad
    of ground truth and both kernels' launch counts must be > 0. Then the same
    small scene registered on the card and on the CPU (plain versions) must agree,
-   and the ``loop.log``/``loop.info`` files must read back.
-5. Calibration path: ``kernels_bench_gpu.calibrate`` at full shape (the
+   and the ``loop.log``/``loop.info`` files must read back. The timed pass and
+   the pair list are ``bench_gpu.py``'s.
+5. Benchmark (``phase_bench``): ``bench_gpu.run`` at its card sizes, the
+   ``bench.py`` workload (6 fragments, 4 batches of 16 pairs, 5 timed passes,
+   the four phase times, 50-frame ``build_fragment`` at raycast scales 1 and 2);
+   its JSON line, printed as is, must show every adjacent pair registered, and
+   ``nearest_batch`` must have been launched (path ``bench``).
+6. Calibration path: ``kernels_bench_gpu.calibrate`` at full shape (the
    opcode counts of the calibration kernels' SASS loop bodies, FFMA / FSETP /
    FSEL ..., which must show the FMA chain executing one FFMA per step; one JSON
    line of peaks, each with its share of the data sheet; a peak over 105% of
    the data sheet fails) and ``bench_kernels`` for ``nn``, ``icp``, ``fpfh``
    and ``voxel`` (one JSON line of scored entries).
-6. Stage path: 24 fragments of 20 000 points written as fragment artifacts,
+7. Stage path: 24 fragments of 20 000 points written as fragment artifacts,
    then the ``register`` and ``posegraph`` CLI verbs at the default
    configuration; every odometry edge and every accepted loop edge two
    fragments apart within 2 cm / 0.02 rad of ground truth (measured at the
@@ -46,7 +52,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    distance from fragment 0, and after ``run_posegraph`` with 32 Gauss-Newton
    steps per alternation instead of 8, within 5 cm at every fragment (see
    ``POSE_LOG_*`` below for why the two differ).
-7. Fragments path: the port renders a synthetic dataset on the card (the
+8. Fragments path: the port renders a synthetic dataset on the card (the
    livingroom, config 3's orbit of radius 1.1 m at 1.3 m, 151 frames at its
    per-frame motion, PrimeSense 640x480, 1 cm depth noise, seed 0, written as
    PNG), then the ``fragments`` (3 fragments of 50 frames, the ``full``
@@ -59,7 +65,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    Gauss-Newton levels of ``track_frame`` and surface extraction (device time
    by ``cuda_ms``, wall time, profiled device-busy time), host synchronisations
    per frame, peak memory and the device profile of one ``build_fragment``.
-8. Scene path, on the fragments path's directory: the ``optimize
+9. Scene path, on the fragments path's directory: the ``optimize
    --slac-mode none``, ``integrate`` and ``evaluate`` verbs, each timed with
    its peak memory. ``trajectory.log`` holds every frame of the 3 fragments,
    ``ate.json``'s ATE is under 2 cm, ``mesh.ply`` parses with more than
@@ -70,7 +76,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    99% of the vertices within 0.1 mm), and the per-frame fuse and
    ``extract_mesh`` are profiled at the scene's tile. One JSON line
    ``{"scene_path": ...}`` carries the numbers.
-9. Distributed paths (``dist/``) at full width, each against the
+10. Distributed paths (``dist/``) at full width, each against the
    single-device path on the same inputs: pair sharding on the ``bench.py``
    workload (one batch of 16 pairs, again with ``fused_step=True``, and 4
    pairs prepped inline), the ring over its 6 fragments padded to 8, the
@@ -85,15 +91,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    NCCL where there are two cards or more. Walls, peak memory a rank, the
    kernels' launches by shape and the collectives gloo staged through host
    memory are printed a run.
-10. Determinism, on the fragments path's ``fragments/``: ``register`` ->
+11. Determinism, on the fragments path's ``fragments/``: ``register`` ->
    ``posegraph`` -> ``optimize --slac-mode none`` -> ``integrate`` run twice
    must write the same bytes, and ``prep_fragments_batch`` give the same bits
    twice (``tools/repeat_check.py``).
-11. Elastic path, on the same directory (milestone config 4 cut as config 3
+12. Elastic path, on the same directory (milestone config 4 cut as config 3
    is): ``optimize`` in ``rigid``, ``slac`` and ``nonrigid``, each followed
    by ``integrate`` and ``evaluate`` and timed with its peak memory; in every
    mode ``rmse_after <= rmse_before``, ``pose_slac.log`` and the lattice files
-   read back finite, ATE under 2 cm, the mesh on the surface as in phase 8,
+   read back finite, ATE under 2 cm, the mesh on the surface as in phase 9,
    and ``optimize`` run again writes the same bytes; each mode's ``optimize``
    launched ``nearest_batch`` at the harvest shape. Then config 4d (the
    orbit rendered through an injected depth distortion, ``fragments`` ->
@@ -107,12 +113,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nearest_batch`` at a re-association query against its plain version;
    and the optimiser at config 3's full length (``BIG_*``, 696 320 rows) in
    slac and nonrigid mode, timed and profiled.
-12. The ``all`` verb on a fresh directory: 21 frames of the same orbit at the
+13. The ``all`` verb on a fresh directory: 21 frames of the same orbit at the
    ``fast`` preset, with ``--slac-mode none`` and at the default mode (slac),
    every artifact written, ATE under 3 cm; then the default mode's
    ``optimize`` on the CPU from the card's upstream, within
    ``CARD_CPU_VERB_ATOL`` of the card's files.
-13. The milestone ladder (``tools/milestones.py``) at its full width: config
+14. The milestone ladder (``tools/milestones.py``) at its full width: config
    3 cut in depth to its first 201 frames (4 fragments; 320x240, 128^3 volumes of 2.4
    cm, 96 raycast steps, clouds of 1 << 16 rows, batches of 16) with ATE
    under 2 cm, then config 4 slac and config 4n on its directory; the
@@ -122,7 +128,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``tools/reg_profile.py``; then ``nearest_batch`` at the ladder's harvest
    shape, (1, 65536, 65536), against its plain version as in phase 3. One
    JSON line ``{"milestones_path": ...}``.
-14. One JSON line of per-kernel numbers, then the last line
+15. One JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
@@ -700,6 +706,23 @@ def require_launched(path: str, counts: dict, names) -> None:
             fail(f"{name} was never launched on the {path} path")
 
 
+def phase_bench() -> dict:
+    """``bench_gpu.py``'s benchmark at its card sizes, counted as path ``bench``:
+    its JSON line, every adjacent pair registered, ``nearest_batch`` launched."""
+    import bench_gpu
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = bench_gpu.run("cuda")
+    counts = launch_counts()
+    print(json.dumps(rec))
+    print(json.dumps({"bench_launches_by_shape": launches_by_shape(), "bench_seconds": time.perf_counter() - t0}))
+    require_launched("bench", counts, ["nearest_batch"])
+    if rec["success_rate_adjacent"] != 1.0:
+        fail(f"bench: adjacent pairs registered at {rec['success_rate_adjacent']}, not 1.0")
+    return counts
+
+
 def phase_calibration() -> dict:
     """The calibration path: measure the card's peaks, then score the hot kernels."""
     import kernels_bench_gpu as kb
@@ -747,27 +770,17 @@ def check_adjacent(name, transform, success, ii, jj, poses) -> None:
 def main_path(dev, num_frag: int, n: int, cfg, batch: int, reps: int, seed: int = 0) -> dict:
     """The registration main path, end to end; returns its outputs and the timed pass's wall time.
 
-    The timed pass is prep + every register batch, queued back to back with
-    one synchronisation at the end (the ``bench.py`` methodology).
+    The timed pass is ``bench_gpu.register_pass``: prep + every register batch,
+    queued back to back, with one synchronisation at the end.
     """
+    import bench_gpu
     from elasticreconstruction_tpu_torch.bench_scene import make_fragments
     from elasticreconstruction_tpu_torch.kernels.cuda import icp_step, nn
-    from elasticreconstruction_tpu_torch.registration import (
-        prep_fragments_batch, refine_edges_batch, register_prepped_batch,
-    )
+    from elasticreconstruction_tpu_torch.registration import refine_edges_batch, register_prepped_batch
 
     clouds, poses = make_fragments(num_frag, n=n, seed=seed)
-    pairs = [(i, j) for i in range(num_frag) for j in range(i + 1, num_frag)]
-    total = ((len(pairs) * reps + batch - 1) // batch) * batch
-    plist = (pairs * (total // len(pairs) + 1))[:total]
-    ii = np.array([i for i, _ in plist])
-    jj = np.array([j for _, j in plist])
-    gen = torch.Generator().manual_seed(seed)
+    ii, jj = bench_gpu.pair_lists(num_frag, batch, reps)
     counts = {}
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
 
     def count(part):  # kernel launches since the previous part, per kernel
         now = (nn.launches, icp_step.launches)
@@ -775,14 +788,10 @@ def main_path(dev, num_frag: int, n: int, cfg, batch: int, reps: int, seed: int 
         count.last = now
 
     count.last = (nn.launches, icp_step.launches)
-    sync()
+    synchronize(dev)
     t0 = time.perf_counter()
-    prepped = prep_fragments_batch(clouds, cfg, device=dev)
-    results = [
-        register_prepped_batch(prepped, ii[s : s + batch], jj[s : s + batch], gen, cfg, device=dev)
-        for s in range(0, total, batch)
-    ]
-    sync()
+    prepped, results = bench_gpu.register_pass(clouds, cfg, ii, jj, batch, dev)
+    synchronize(dev)
     wall = time.perf_counter() - t0
     count(f"prep + {len(results)} register batches")
 
@@ -792,12 +801,13 @@ def main_path(dev, num_frag: int, n: int, cfg, batch: int, reps: int, seed: int 
     first = [int(np.nonzero((ii == i) & (jj == i + 1))[0][0]) for i in adj_i]
     refined, refined_info = refine_edges_batch(prepped, adj_i, adj_i + 1, transforms[first], cfg)
     count("refine_edges_batch")
-    fused = register_prepped_batch(prepped, ii[:batch], jj[:batch], gen, cfg, fused_step=True, device=dev)
+    fused = register_prepped_batch(prepped, ii[:batch], jj[:batch], torch.Generator().manual_seed(seed), cfg,
+                                   fused_step=True, device=dev)
     count("fused_step register batch")
-    sync()
+    synchronize(dev)
     return {"prepped": prepped, "results": results, "ii": ii, "jj": jj, "poses": poses,
             "refined": refined, "refined_info": refined_info, "adj_i": adj_i, "fused": fused,
-            "wall_s": wall, "pairs": total, "launches_by_part": counts}
+            "wall_s": wall, "pairs": len(ii), "launches_by_part": counts}
 
 
 def check_main_path(out: dict, batch: int) -> None:
@@ -862,65 +872,6 @@ def check_logfiles(out: dict) -> None:
     if not (np.abs(T_back - T).max() < 1e-7 and np.abs(info_back - info).max() <= 1e-8 * np.abs(info).max() + 1e-7):
         fail("loop.log / loop.info did not read back")
     print(f"loop.log / loop.info: {len(T)} edges written and read back")
-
-
-def phase_timings(out: dict, cfg, batch: int) -> dict:
-    """Per-phase wall ms for one batch of ``batch`` pairs (bench.py's phase split)."""
-    from elasticreconstruction_tpu_torch.bench_scene import make_fragments
-    from elasticreconstruction_tpu_torch.core import se3
-    from elasticreconstruction_tpu_torch.core.types import PointCloud
-    from elasticreconstruction_tpu_torch.kernels import knn
-    from elasticreconstruction_tpu_torch.registration import features, icp, infomat, ransac
-    from elasticreconstruction_tpu_torch.registration import prep_fragments_batch
-
-    dev = torch.device("cuda")
-    prepped = out["prepped"]
-    bi = torch.as_tensor(out["ii"][:batch], device=dev)
-    bj = torch.as_tensor(out["jj"][:batch], device=dev)
-    pi, pj = prepped.take(bi), prepped.take(bj)
-    gen = torch.Generator().manual_seed(7)
-    clouds, _ = make_fragments(int(prepped.features.shape[0]))
-
-    def match_ransac():
-        corr, cm = features.match_features(pj.features, pj.coarse.mask, pi.features, pi.coarse.mask)
-        return ransac.ransac_alignment(pj.coarse.points, pi.coarse.points, corr, cm, gen,
-                                       inlier_threshold=cfg.inlier_threshold,
-                                       edge_similarity=cfg.edge_similarity,
-                                       num_hypotheses=cfg.num_hypotheses)
-
-    rr = match_ransac()
-    src = PointCloud(*(x[:, :: cfg.icp_src_stride] for x in pj.fine))
-
-    def icp_phase():
-        return icp.icp_point_to_plane_batch(
-            src, pi.fine, rr.transform, max_correspondence_distance=cfg.inlier_threshold,
-            iterations=cfg.icp_iterations, coarse_iterations=cfg.icp_coarse_iterations,
-            coarse_stride=cfg.icp_coarse_stride, dead=rr.num_inliers < cfg.min_inliers)
-
-    ir = icp_phase()
-
-    def info_phase():
-        p = se3.apply(ir.transform, pj.fine.points)
-        d2, _ = knn.nearest_auto_batch(p, pi.fine.points, pi.fine.mask)
-        return infomat.information_matrix(p, pj.fine.mask & (d2 < cfg.inlier_threshold ** 2))
-
-    def best_of(fn, reps=3):
-        fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        return min(ts) * 1e3
-
-    return {
-        "prep_all_fragments_ms": best_of(lambda: prep_fragments_batch(clouds, cfg, device=dev)),
-        "match_ransac_ms": best_of(match_ransac),
-        "icp_ms": best_of(icp_phase),
-        "infomat_ms": best_of(info_phase),
-    }
 
 
 def device_profile(name: str, fn, top: int = 6, warm: bool = True) -> dict:
@@ -2506,6 +2457,7 @@ KERNELS = {
 
 def main() -> int:
     device = phase_device()
+    import bench_gpu
     from elasticreconstruction_tpu_torch.registration import RegistrationConfig
 
     phase_build()
@@ -2516,7 +2468,8 @@ def main() -> int:
     # Registration path.
     cfg = RegistrationConfig()
     dev = torch.device("cuda")
-    batch, num_frag, n, reps = 16, 6, 20000, 4
+    size = bench_gpu.CARD_SIZES
+    batch, num_frag, n, reps = size["batch"], size["num_frag"], size["points"], size["reps"]
     main_path(dev, 3, n, cfg, batch=batch, reps=1)  # warm-up: allocator, cuBLAS, cuSOLVER
     reset_launch_counts()
     out = main_path(dev, num_frag, n, cfg, batch=batch, reps=reps)
@@ -2532,17 +2485,11 @@ def main() -> int:
     print("adjacent pairs (i, j, m, rad): " + ", ".join(f"({i},{j},{t:.4f},{r:.4f})" for i, j, t, r in errs))
     check_logfiles(out)
     check_small_cpu_agreement()
-
-    rates = [out["pairs"] / out["wall_s"]]
-    for _ in range(2):
-        rates.append(out["pairs"] / main_path(dev, num_frag, n, cfg, batch=batch, reps=reps)["wall_s"])
-    phases = phase_timings(out, cfg, batch)
     profile_where_time_goes(out, cfg, batch)
-    print(json.dumps({"registration_pairs_per_second": statistics.median(rates),
-                      "pass_rates": rates, "batch": batch, "pairs_timed": out["pairs"],
-                      "phase_ms_per_batch": phases}))
     del out
     phase_done("registration path")
+    by_path["bench"] = phase_bench()
+    phase_done("bench")
 
     by_path["calibration"] = phase_calibration()
     phase_done("calibration path")

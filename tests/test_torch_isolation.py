@@ -1,12 +1,13 @@
 """PyTorch port: it stands apart from JAX and never runs on the CPU unasked.
 
 - Importing the port pulls in neither ``jax`` nor any module of the JAX package.
-- No source file of the port, nor ``chip_smoke.py``, nor
-  ``kernels_bench_gpu.py``, imports either (or ``kernels_bench``).
+- No source file of the port, nor ``chip_smoke.py``, ``kernels_bench_gpu.py``
+  or ``bench_gpu.py``, imports either (or ``kernels_bench`` or ``bench``).
 - Entry points default to the card and raise where there is none.
 - Kernel wrappers refuse devices they have no route for.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card and
-  outside a checkout of the repository.
+  outside a checkout of the repository; ``bench_gpu.py`` exits non-zero,
+  printing no result, without a card.
 """
 
 import os
@@ -21,7 +22,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "elasticreconstruction_tpu_torch"
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|elasticreconstruction_tpu|kernels_bench)(\s|\.|,|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|elasticreconstruction_tpu|kernels_bench|bench)(\s|\.|,|$)", re.M)
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -61,10 +62,10 @@ def test_import_pulls_in_no_jax():
         "import elasticreconstruction_tpu_torch.tools.milestones, elasticreconstruction_tpu_torch.tools.ring_scale\n"
         "import elasticreconstruction_tpu_torch.tools.reg_profile, elasticreconstruction_tpu_torch.tools.sweep_fragopt\n"
         "import elasticreconstruction_tpu_torch.tools.slac_oracle\n"
-        "import kernels_bench_gpu, chip_smoke\n"
+        "import kernels_bench_gpu, chip_smoke, bench_gpu\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m == 'elasticreconstruction_tpu' or m.startswith('elasticreconstruction_tpu.')\n"
-        "       or m == 'kernels_bench']\n"
+        "       or m in ('kernels_bench', 'bench')]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
@@ -76,17 +77,20 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_no_jax():
-    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernels_bench_gpu.py"]
+    files = sorted(PACKAGE.rglob("*.py")) + [REPO / name for name in ("chip_smoke.py", "kernels_bench_gpu.py",
+                                                                       "bench_gpu.py")]
     assert len(files) > 30
     offenders = [str(f.relative_to(REPO)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
     # The pattern does catch the forbidden forms.
     for line in ("import jax", "from jax import numpy", "import elasticreconstruction_tpu.core",
                  "from elasticreconstruction_tpu.kernels import knn", "from elasticreconstruction_tpu import x",
-                 "import kernels_bench", "from kernels_bench import _sol"):
+                 "import kernels_bench", "from kernels_bench import _sol", "import bench",
+                 "from bench import make_fragments"):
         assert _FORBIDDEN.search(line), line
     assert not _FORBIDDEN.search("from elasticreconstruction_tpu_torch import se3")
     assert not _FORBIDDEN.search("import kernels_bench_gpu")
+    assert not _FORBIDDEN.search("import bench_gpu") and not _FORBIDDEN.search("from bench_scene import x")
 
 
 def test_default_device_raises_without_a_card():
@@ -250,6 +254,15 @@ def test_chip_smoke_fails_without_a_card():
     proc = _run([str(REPO / "chip_smoke.py")], REPO)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_bench_gpu_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = _run([str(REPO / "bench_gpu.py")], REPO)
+    assert proc.returncode != 0
+    assert not [ln for ln in proc.stdout.splitlines() if ln.lstrip().startswith("{")], proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr
 
 
 def test_chip_smoke_fails_outside_the_repository(tmp_path):
