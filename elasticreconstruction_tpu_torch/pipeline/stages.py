@@ -189,8 +189,11 @@ def load_fragment_clouds(cfg: PipelineConfig) -> list[PointCloud]:
 
 def _batch_generator(seed: int, start: int) -> torch.Generator:
     """The RANSAC draw source of the batch starting at pair ``start``: one
-    stream per (stage seed, batch), whatever ran before it."""
-    return torch.Generator().manual_seed((int(seed) << 32) ^ int(start))
+    stream per (stage seed, batch), whatever ran before it. The CPU generator
+    keeps only the low 32 bits of its seed, so the stage seed enters them as
+    a Weyl step (an odd multiplier: a bijection of the seeds mod 2^32); seed 0
+    draws the stream of ``start`` alone."""
+    return torch.Generator().manual_seed((int(start) + int(seed) * 0x9E3779B9) % (1 << 32))
 
 
 def run_registration(

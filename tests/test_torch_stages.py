@@ -172,6 +172,22 @@ def test_registration_stats_record(runs):
     assert t_stats["pairs"] == 6 and t_stats["odometry_edges"] == NUM - 1
 
 
+def test_stage_seed_selects_the_draws():
+    """``cfg.seed`` (the CLI's ``--seed``) picks every batch's RANSAC stream.
+    The CPU generator keeps only the low 32 bits of its seed, so a stage seed
+    shifted above them drew the same hypotheses under every seed. Seed 0 keeps
+    the stream of the batch's start alone, the one the recorded ladder runs drew."""
+
+    def first(gen):
+        return torch.randint(0, 1 << 30, (16,), generator=gen)
+
+    starts = (0, 16, 336)
+    streams = {(seed, start): first(t_stages._batch_generator(seed, start)) for seed in range(5) for start in starts}
+    assert len({tuple(v.tolist()) for v in streams.values()}) == len(streams)
+    for start in starts:
+        assert torch.equal(streams[(0, start)], first(torch.Generator().manual_seed(start)))
+
+
 def test_posegraph_matches_jax_on_the_same_registration(runs):
     j_pg, t_pg = runs["jax"] / "posegraph", runs["torch_pg"] / "posegraph"
     assert (t_pg / "kept_edges.txt").read_text() == (j_pg / "kept_edges.txt").read_text()
