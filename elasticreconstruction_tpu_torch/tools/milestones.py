@@ -267,20 +267,30 @@ def run_config4(root: Path, args, device, mode: str) -> dict:
     return stages.run_evaluate(ds, cfg4, device=device)
 
 
+def distortion():
+    """Config 4d's injected depth distortion, ~1.5% at the image corner."""
+    return dist_mod.make_distortion(42, radial_a=0.015, depth_b=0.004, grid_sigma=0.006)
+
+
+def distorted_cfg(cfg: PipelineConfig) -> PipelineConfig:
+    """Config 4d's settings on the ladder's ``cfg``: rigid mode, five coarse-to-fine
+    correspondence rounds and the lattice's weights; registration as config 3's."""
+    slac_cfg = cfg.slac._replace(disp_prior_weight=0.01, arap_weight=1.0, outer_iterations=8)
+    return replace(cfg, slac_mode="rigid", slac=slac_cfg, corres_max_distance=0.07, corres_rounds=5,
+                   corres_distance_decay=0.7, corres_baseline_weight=4.0)
+
+
 def run_distorted(root: Path, args, device, data_name: str = "data_dist2", out_name: str = "out_dist2",
                   trajectory: str = "orbit") -> dict:
     """The sequence rendered through a consumer-camera-scale depth distortion
     (~1.5% at the image corner); rigid against slac with five coarse-to-fine
     correspondence rounds, and the learned lattice scored against the field."""
-    dist = dist_mod.make_distortion(42, radial_a=0.015, depth_b=0.004, grid_sigma=0.006)
+    dist = distortion()
     data_d = root / data_name
     ds_d = gen(args, data_d, device, frames=args.frames, scene="livingroom", radius=1.1, distortion=dist,
                trajectory=trajectory)
     scene_sdf = scenes_mod.livingroom_scene()
-    cfg_d = make_cfg(args, data_d, root / out_name)
-    slac_cfg = cfg_d.slac._replace(disp_prior_weight=0.01, arap_weight=1.0, outer_iterations=8)
-    cfg_d = replace(cfg_d, slac_mode="rigid", slac=slac_cfg, corres_max_distance=0.07, corres_rounds=5,
-                    corres_distance_decay=0.7, corres_baseline_weight=4.0)
+    cfg_d = distorted_cfg(make_cfg(args, data_d, root / out_name))
     out = {}
     od = Path(cfg_d.out_dir)
     if not (od / "fragments" / "fragments.log").exists():
@@ -299,7 +309,7 @@ def run_distorted(root: Path, args, device, data_name: str = "data_dist2", out_n
             **frag_pose_ate(c, ds_d, device),
             **cloud_surface_error(c, scene_sdf, mode, ds_d, device),
         }
-    lat = Lattice(slac_cfg.resolution, slac_cfg.length, slac_cfg.origin)
+    lat = Lattice(cfg_d.slac.resolution, cfg_d.slac.length, cfg_d.slac.origin)
     pos, _, _ = io_logfmt.read_ctr(od / "slac" / "ctr.txt")
     disp = (pos - lat.rest_positions().numpy()).astype(np.float32)
     clouds = stages.load_fragment_clouds(cfg_d)
@@ -330,11 +340,7 @@ def run_deformed(root: Path, args, device) -> dict:
     base = base_cfg(root, args)
     src = base.p_fragments()
     out_dir = root / "out_deformed"
-    dst_cfg = replace(
-        base, out_dir=str(out_dir), corres_max_distance=0.06, corres_rounds=3, corres_distance_decay=0.6,
-        corres_reassoc_pair_transforms=True,
-        slac=base.slac._replace(disp_prior_weight=0.003, arap_weight=1.0, outer_iterations=10),
-    )
+    dst_cfg = deformed_cfg(base, out_dir)
     dst = dst_cfg.p_fragments()
     dst.mkdir(parents=True, exist_ok=True)
     lat = Lattice(8, 3.0, (-1.5, -1.5, 0.0))
@@ -351,14 +357,31 @@ def run_deformed(root: Path, args, device) -> dict:
         if hp.exists():
             (dst / f"health_{f}.json").write_text(hp.read_text())
     (dst / "fragments.log").write_text((src / "fragments.log").read_text())
-    scene_sdf = scenes_mod.livingroom_scene()
     if not (out_dir / "registration" / "loop.log").exists():
         stages.run_registration(dst_cfg, all_pairs=True, device=device)
     if not (out_dir / "posegraph" / "pose.log").exists():
         stages.run_posegraph(dst_cfg, device=device)
+    return score_deformed(dst_cfg, ds, device)
+
+
+def deformed_cfg(base: PipelineConfig, out_dir: Path) -> PipelineConfig:
+    """Config 4n's settings on config 3's ``base``: three correspondence rounds
+    re-associated through the pair transforms and the lattice's weights;
+    registration and pose graph as config 3's."""
+    return replace(
+        base, out_dir=str(out_dir), corres_max_distance=0.06, corres_rounds=3, corres_distance_decay=0.6,
+        corres_reassoc_pair_transforms=True,
+        slac=base.slac._replace(disp_prior_weight=0.003, arap_weight=1.0, outer_iterations=10),
+    )
+
+
+def score_deformed(cfg: PipelineConfig, ds: Dataset, device) -> dict:
+    """``run_optimize`` on 4n's registered clouds in rigid and nonrigid mode:
+    fragment-pose ATE and the corrected clouds' surface error of each."""
+    scene_sdf = scenes_mod.livingroom_scene()
     out = {}
     for mode in ("rigid", "nonrigid"):
-        cfg_m = replace(dst_cfg, slac_mode=mode)
+        cfg_m = replace(cfg, slac_mode=mode)
         opt = stages.run_optimize(cfg_m, device=device)
         out[mode] = {
             "data_rmse": opt.get("rmse_after"),
@@ -409,6 +432,9 @@ def run_degenerate(root: Path, args, device) -> dict:
     }
 
 
+SCENE_RADII = {"office": 0.9, "livingroom2": 0.8}  # config 5's orbits, m
+
+
 def run_scene(root: Path, args, device, scene: str, radius: float) -> dict:
     """Another scene stand-in at the default configuration (the derived drift gate)."""
     data_s = root / f"data_{scene}"
@@ -455,8 +481,9 @@ CONFIGS = (
     ("config4_slac_survey", run_survey),
     ("config4_nonrigid_deformed", run_deformed),
     ("config3_degenerate", run_degenerate),
-    ("config5_office", lambda root, args, device: run_scene(root, args, device, "office", 0.9)),
-    ("config5_livingroom2", lambda root, args, device: run_scene(root, args, device, "livingroom2", 0.8)),
+    ("config5_office", lambda root, args, device: run_scene(root, args, device, "office", SCENE_RADII["office"])),
+    ("config5_livingroom2",
+     lambda root, args, device: run_scene(root, args, device, "livingroom2", SCENE_RADII["livingroom2"])),
     ("config5_ring4seq", run_ring),
 )
 

@@ -1,35 +1,47 @@
-"""The card's side of the stage-parity trace of the ladder's configs 3 and 3d.
+"""The card's side of the stage-parity trace of the ladder's configs.
 
 Runs the port only (no JAX), on the card, and packs what
 ``tests/stage_diagnosis.py`` reads on the CPU under a directory that comes
 back from the card (``chiprun_out/`` there is 64 MiB a call):
 
-    python tests/ladder_card.py ladder --root R --results F [--trace T]
-    python tests/ladder_card.py seeds --root R --seeds 0,1,2,3,4 --out F
-    python tests/ladder_card.py pack --root R --dest D --part odometry|render [--budget-mb N]
-    python tests/ladder_card.py register --root R --draws NPZ --dest D
+    python tests/ladder_card.py ladder --root R --results F [--trace T] [--configs K,...]
+    python tests/ladder_card.py seeds --root R --seeds 0,1,2,3,4 --out F [--configs K,...]
+    python tests/ladder_card.py pack --root R --dest D --part odometry|render|odometry,render [--budget-mb N]
+    python tests/ladder_card.py register --root R --draws NPZ --dest D [--configs K,...]
+    python tests/ladder_card.py optimize --root R --stages-from S --dest D [--configs K,...]
 
-``ladder``: ``tools/milestones.py`` for ``config3_full_rigid`` and
-``config3_degenerate`` in this process, with each fragment's odometry recorded
-as it is built: the velocity it starts from (the previous fragment's
-``final_velocity``, which no artifact keeps), its final velocity and the
-per-frame fitness, RMSE and observability (``--trace``, one JSON file).
+``--configs`` names the configs by their keys in ``CONFIGS`` (default: all):
+``full`` (config 3), ``bare`` (3d), ``deformed`` (4n, config 3's clouds
+through known warps), ``dist2`` (4d), ``office`` and ``livingroom2`` (5).
+``--data NAME`` (``seeds``, ``register``, ``pack``) runs them on another
+dataset under ``--root``, such as the JAX package's render of the same
+sequence, with their artifacts under ``<artifact directory>_on_NAME``.
+
+``ladder``: ``tools/milestones.py`` for the configs named, in this process
+(4n brings config 3 with it, whose clouds it warps), with each fragment's
+odometry recorded as it is built: the velocity it starts from (the previous
+fragment's ``final_velocity``, which no artifact keeps), its final velocity
+and the per-frame fitness, RMSE and observability (``--trace``, one JSON
+file keyed by artifact directory).
 
 ``seeds``: the draw sensitivity. For each seed, a copy of each config's
 ``fragments/`` through ``register`` -> ``posegraph`` -> ``optimize`` ->
-``integrate`` -> ``evaluate`` at the ladder's settings with ``cfg.seed`` set,
+``integrate`` -> ``evaluate`` at the config's settings with ``cfg.seed`` set,
 which seeds only the per-batch RANSAC generator
 (``pipeline/stages.py::_batch_generator``); one JSON line a run (ATE, the
 healthy-frame ATE for 3d, P/R, the gate's sets, the MD5 of ``loop.log``) on
-stdout and in ``--out``. Renders the datasets first where they are missing.
-The stage functions are called at the ladder's configuration: the CLI verbs
-cannot set its ``registration_batch`` (16) or cloud capacity.
+stdout and in ``--out``. Renders the datasets and builds the fragments first
+where they are missing. The stage functions are called at the ladder's
+configuration: the CLI verbs cannot set its ``registration_batch`` (16) or
+cloud capacity. 4n's runs stop at ``optimize`` in rigid and nonrigid mode,
+scored as the ladder scores them; they read its warped ``fragments/`` and
+the dataset's ``gt.log`` and ``intrinsics.json``, no frames.
 
-``pack``: the small files of both configs (fragment logs and health,
-``registration/``, ``posegraph/``, ``integrate/trajectory.log``, the seed
-runs' logs, ``gt.log``, the MD5 of every depth PNG), then
+``pack``: the small files of each config (fragment logs and health,
+``registration/``, ``posegraph/``, ``slac/``, ``integrate/trajectory.log``,
+the seed runs' logs, ``gt.log``, the MD5 of every depth PNG), then
 ``--part odometry``: the fragment clouds and every frame of the fragments
-``stage_diagnosis.py fragments`` rebuilds (``ODOMETRY_FRAGMENTS``), or
+``stage_diagnosis.py fragments`` rebuilds (``ODOMETRY_FRAGMENTS``), and
 ``--part render``: the render sample (``RENDER_SAMPLE``). Frames are packed as
 16-bit millimetres, the bytes the PNGs decode to, split into high and low
 byte planes and compressed with LZMA (75 KB a 320x240 frame against 110 KB as
@@ -38,14 +50,22 @@ listing the frame indices. Packing stops before ``--budget-mb`` and says
 what it left out. With ``--md5 FILE`` (an earlier call's ``depth_md5.json``),
 ``pack`` first checks that this call's render has the same bytes.
 
-``register``: the port's ``run_registration`` at the ladder's settings on a
-copy of each config's ``fragments/`` (as an earlier call brought them back,
-placed under ``R/<out_full|out_bare>/fragments``), each batch on the RANSAC
-draws the JAX stage makes for it, read from ``--draws`` (written on the CPU
-by ``tests/stage_diagnosis.py draws``), then ``run_posegraph``. Writes under
+``register``: the port's ``run_registration`` at the config's settings on a
+copy of each config's ``fragments/`` (as the ladder wrote them in this call,
+or as an earlier call brought them back, placed under ``R/<out_*>/fragments``),
+each batch on the RANSAC draws the JAX stage makes for it, read from
+``--draws`` (written on the CPU by ``tests/stage_diagnosis.py draws``), then
+``run_posegraph``; for 4n then ``run_optimize`` in rigid and nonrigid mode, and
+for 4d in rigid mode, scored as the ladder scores them (``optimize.json``). Writes under
 ``D/<config>/`` what the drift gate chose and every pair's result
-(``register_capture.json`` and ``.npz``, :func:`save_capture`) and the two
+(``register_capture.json`` and ``.npz``, :func:`save_capture`) and the
 stages' small files.
+
+``optimize``: the port's ``run_optimize`` of 4n and 4d, scored as ``register``
+scores it, on a copy of each config's ``fragments/`` with the registration and
+pose graph of another run (``S/<config>/registration`` and ``posegraph``, such
+as the JAX stages' written on the CPU by ``tests/stage_diagnosis.py register
+--save``), so that the optimiser alone is held against the JAX stage's.
 """
 
 from __future__ import annotations
@@ -77,24 +97,58 @@ K = 50
 CONFIGS = {
     "full": ("config3_full_rigid", "data", "out_full"),
     "bare": ("config3_degenerate", "data_bare", "out_bare"),
+    "deformed": ("config4_nonrigid_deformed", "data", "out_deformed"),
+    "dist2": ("config4_slac_distorted", "data_dist2", "out_dist2"),
+    "office": ("config5_office", "data_office", "out_office"),
+    "livingroom2": ("config5_livingroom2", "data_livingroom2", "out_livingroom2"),
 }
+# 4n warps config 3's clouds, so its ladder run needs config 3's.
+NEEDS = {"deformed": "full"}
 # Fragments whose every frame (f*K .. f*K + K) ``stage_diagnosis.py fragments``
 # rebuilds: config 3's first and a mid-orbit one; config 3d's first, the last
 # healthy one before the blind wall (32), the first suspect one (33) and one
-# after the suspect stretch 33-41.
-ODOMETRY_FRAGMENTS = {"full": (0, 25), "bare": (0, 32, 33, 43)}
-# The render sample: every 10th frame, and for 3d every frame of fragments 31-34
+# after the suspect stretch 33-41; config 5's first and a mid-orbit one.
+ODOMETRY_FRAGMENTS = {"full": (0, 25), "bare": (0, 32, 33, 43), "office": (0, 10), "livingroom2": (0, 10)}
+# The render sample: every n-th frame, and for 3d every frame of fragments 31-34
 # and of the other fragments ``ODOMETRY_FRAGMENTS`` names.
-RENDER_SAMPLE = {"full": (10, ()), "bare": (10, (0, 31, 32, 33, 34, 43))}
+RENDER_SAMPLE = {"full": (10, ()), "bare": (10, (0, 31, 32, 33, 34, 43)), "office": (20, ()),
+                 "livingroom2": (20, ())}
 
 
-def ladder_args(root: Path, results: Path):
+def with_needs(keys) -> set[str]:
+    return {*keys, *(NEEDS[k] for k in keys if k in NEEDS)}
+
+
+def ladder_args(root: Path, results: Path, keys=tuple(CONFIGS)):
+    names = [CONFIGS[k][0] for k in sorted(with_needs(keys))]
     return milestones.build_parser().parse_args(
-        ["--only", ",".join(c for c, _, _ in CONFIGS.values()), "--out", str(root), "--results", str(results)])
+        ["--only", ",".join(names), "--out", str(root), "--results", str(results)])
 
 
-def run_ladder(root: Path, results: Path, trace: Path | None) -> None:
-    """The two configs through ``tools/milestones.py``, each fragment's odometry recorded."""
+def stage_cfg(key: str, args, root: Path, out: Path):
+    """The configuration the ladder runs config ``key``'s stages at, writing under ``out``."""
+    cfg = milestones.make_cfg(args, root / CONFIGS[key][1], out)
+    if key == "deformed":
+        return milestones.deformed_cfg(cfg, out)
+    return milestones.distorted_cfg(cfg) if key == "dist2" else cfg
+
+
+def render_dataset(key: str, root: Path, args, device) -> Dataset:
+    """Config ``key``'s dataset under ``root`` as the ladder renders it (a no-op where present)."""
+    data = root / CONFIGS[key][1]
+    if key in ("full", "deformed"):
+        return milestones.main_dataset(root, args, device)
+    if key == "bare":
+        return milestones.gen(args, data, device, frames=args.frames, scene="livingroom_bare", radius=1.1)
+    if key == "dist2":
+        return milestones.gen(args, data, device, frames=args.frames, scene="livingroom", radius=1.1,
+                              distortion=milestones.distortion())
+    return milestones.gen(args, data, device, frames=args.frames_scenes, scene=key,
+                          radius=milestones.SCENE_RADII[key])
+
+
+def run_ladder(root: Path, results: Path, trace: Path | None, keys) -> None:
+    """The configs through ``tools/milestones.py``, each fragment's odometry recorded."""
     record: dict = {}
     current = {"out": None}
     real_fragments, real_build = stages.run_fragments, stages.build_fragment
@@ -113,11 +167,18 @@ def run_ladder(root: Path, results: Path, trace: Path | None) -> None:
         })
         return res
 
-    stages.run_fragments, stages.build_fragment = run_fragments, build_fragment
+    patch = Patch()
+    patch(stages, "run_fragments", run_fragments)
+    patch(stages, "build_fragment", build_fragment)
+    args = ladder_args(root, results, keys)
+    results.parent.mkdir(parents=True, exist_ok=True)
+    if "data" not in {CONFIGS[k][1] for k in with_needs(keys)}:
+        # The ladder renders config 3's dataset first; none of these configs reads it.
+        patch(milestones, "main_dataset", lambda root, args, device: None)
     try:
-        milestones.run_ladder(ladder_args(root, results))
+        milestones.run_ladder(args)
     finally:
-        stages.run_fragments, stages.build_fragment = real_fragments, real_build
+        patch.undo()
     if trace is not None:
         trace.parent.mkdir(parents=True, exist_ok=True)
         trace.write_text(json.dumps(record))
@@ -142,37 +203,51 @@ def md5(path: Path) -> str:
     return hashlib.md5(path.read_bytes()).hexdigest()
 
 
-def render_datasets(root: Path, device) -> None:
-    """Both configs' datasets under ``root``, as the ladder renders them (a no-op where present)."""
-    args = ladder_args(root, root / "unused.json")
-    milestones.main_dataset(root, args, device)
-    milestones.gen(args, root / "data_bare", device, frames=args.frames, scene="livingroom_bare", radius=1.1)
+def seed_scores(key: str, cfg, ds: Dataset, dev) -> dict:
+    """One seed run's figures after its pose graph: 4n's as the ladder scores it
+    (``score_deformed``: rigid and nonrigid ``optimize`` on the clouds), the
+    others' through ``optimize`` -> ``integrate`` -> ``evaluate``."""
+    if key == "deformed":
+        m = milestones.score_deformed(cfg, ds, dev)
+        return {"surface_improvement": m["surface_improvement"],
+                **{f"{mode}_{k}": m[mode][k] for mode in ("rigid", "nonrigid")
+                   for k in ("surface_rmse", "frag_ate_rmse", "frag_ate_max")}}
+    stages.run_optimize(cfg, device=dev)
+    stages.run_integrate(ds, cfg, device=dev)
+    m = stages.run_evaluate(ds, cfg, device=dev)
+    (Path(cfg.out_dir) / "integrate" / "mesh.ply").unlink(missing_ok=True)
+    return {**{k: m[k] for k in ("ate_rmse", "registration_precision", "registration_recall")},
+            **(healthy_ate(cfg, ds, dev) if key == "bare" else {})}
 
 
-def run_seeds(root: Path, seeds: list[int], out: Path, device: str) -> None:
-    args = ladder_args(root, root / "unused.json")
-    render_datasets(root, device)
+def run_seeds(root: Path, seeds: list[int], out: Path, device: str, keys) -> None:
+    args = ladder_args(root, root / "unused.json", keys)
     dev = torch.device(device)
     out.parent.mkdir(parents=True, exist_ok=True)
     with open(out, "w") as f:
-        for key, (_, data, art) in CONFIGS.items():
-            ds = Dataset(root / data)
+        for key in keys:
+            _, data, art = CONFIGS[key]
+            if key == "deformed":
+                # Config 3's clouds, warped: no frames of its own; scored on
+                # the clouds against the dataset's gt.log, so it needs no render.
+                ds = Dataset(root / data)
+            else:
+                ds = render_dataset(key, root, args, device)
+            if not (root / art / "fragments" / "fragments.log").exists():
+                t0 = time.time()
+                stages.run_fragments(ds, stage_cfg(key, args, root, root / art), device=dev)
+                print(json.dumps({"fragments": key, "seconds": round(time.time() - t0, 1)}), flush=True)
             for seed in seeds:
                 run_dir = root / "seeds" / f"{key}_s{seed}"
                 if run_dir.exists():
                     shutil.rmtree(run_dir)
                 shutil.copytree(root / art / "fragments", run_dir / "fragments")
-                cfg = replace(milestones.make_cfg(args, root / data, run_dir), seed=seed)
+                cfg = replace(stage_cfg(key, args, root, run_dir), seed=seed)
                 t0 = time.time()
                 reg = stages.run_registration(cfg, all_pairs=True, device=dev)
                 stages.run_posegraph(cfg, device=dev)
-                stages.run_optimize(cfg, device=dev)
-                stages.run_integrate(ds, cfg, device=dev)
-                m = stages.run_evaluate(ds, cfg, device=dev)
-                (run_dir / "integrate" / "mesh.ply").unlink(missing_ok=True)
-                rec = {"config": key, "seed": seed, "seconds": round(time.time() - t0, 1),
-                       **{k: m[k] for k in ("ate_rmse", "registration_precision", "registration_recall")},
-                       **(healthy_ate(cfg, ds, dev) if key == "bare" else {}),
+                rec = {"config": key, "seed": seed, **seed_scores(key, cfg, ds, dev),
+                       "seconds": round(time.time() - t0, 1),
                        **{k: reg[k] for k in ("pairs", "accepted", "gate_admitted", "gate_suspect_path",
                                               "gate_content_admitted") if k in reg},
                        "loop_log_md5": md5(run_dir / "registration" / "loop.log")}
@@ -183,10 +258,12 @@ def run_seeds(root: Path, seeds: list[int], out: Path, device: str) -> None:
 
 def frame_sets(key: str, part: str, n_frames: int) -> list[int]:
     if part == "odometry":
-        frames = {k for f in ODOMETRY_FRAGMENTS[key] for k in range(f * K, f * K + K + 1)}
-    else:
+        frames = {k for f in ODOMETRY_FRAGMENTS.get(key, ()) for k in range(f * K, f * K + K + 1)}
+    elif key in RENDER_SAMPLE:
         every, whole = RENDER_SAMPLE[key]
         frames = set(range(0, n_frames, every)) | {k for f in whole for k in range(f * K, f * K + K + 1)}
+    else:
+        frames = set()
     return sorted(k for k in frames if k < n_frames)
 
 
@@ -291,8 +368,8 @@ def load_capture(src: Path) -> dict:
             "stats": meta["stats"], **{k: arr[k] for k in FIELDS}}
 
 
-def run_register(root: Path, draws_file: Path, dest: Path, device: str) -> None:
-    args = ladder_args(root, root / "unused.json")
+def run_register(root: Path, draws_file: Path, dest: Path, device: str, keys) -> None:
+    args = ladder_args(root, root / "unused.json", keys)
     draws = np.load(draws_file)
 
     def draws_for(start, n):
@@ -301,12 +378,13 @@ def run_register(root: Path, draws_file: Path, dest: Path, device: str) -> None:
             raise ValueError(f"{draws_file} has no draws for the batch at pair {start}")
         return torch.from_numpy(draws[key][:n])
 
-    for key, (_, data, art) in CONFIGS.items():
+    for key in keys:
+        _, data, art = CONFIGS[key]
         run_dir = root / "jax_draws" / key
         if run_dir.exists():
             shutil.rmtree(run_dir)
         shutil.copytree(root / art / "fragments", run_dir / "fragments")
-        cfg = milestones.make_cfg(args, root / data, run_dir)
+        cfg = stage_cfg(key, args, root, run_dir)
         t0 = time.time()
         cap = port_registration(cfg, torch.device(device), draws_for)
         t_reg = time.time() - t0
@@ -315,21 +393,66 @@ def run_register(root: Path, draws_file: Path, dest: Path, device: str) -> None:
         for sub in ("registration", "posegraph"):
             shutil.copytree(run_dir / sub, dest / key / sub, dirs_exist_ok=True)
         print(json.dumps({"register_jax_draws": key, "seconds": round(t_reg, 1), **cap["stats"]}), flush=True)
+        write_optimize(key, cfg, Dataset(root / data), torch.device(device), dest / key, "optimize_jax_draws")
+
+
+def run_optimize_from(root: Path, stages_from: Path, dest: Path, device: str, keys) -> None:
+    args = ladder_args(root, root / "unused.json", keys)
+    for key in keys:
+        if key not in ("deformed", "dist2"):
+            raise SystemExit(f"optimize: {key} has no optimize score")
+        _, data, art = CONFIGS[key]
+        run_dir = root / "stages_from" / key
+        if run_dir.exists():
+            shutil.rmtree(run_dir)
+        shutil.copytree(root / art / "fragments", run_dir / "fragments")
+        for sub in ("registration", "posegraph"):
+            shutil.copytree(stages_from / key / sub, run_dir / sub)
+        cfg = stage_cfg(key, args, root, run_dir)
+        write_optimize(key, cfg, Dataset(root / data), torch.device(device), dest / key, "optimize_stages_from")
+
+
+def write_optimize(key: str, cfg, ds: Dataset, dev, dest: Path, tag: str) -> None:
+    """:func:`score_optimize` into ``dest/optimize.json`` and one JSON line, with the optimised poses."""
+    scores = score_optimize(key, cfg, ds, dev)
+    if scores is None:
+        return
+    (dest / "slac").mkdir(parents=True, exist_ok=True)
+    (dest / "optimize.json").write_text(json.dumps(scores, indent=1))
+    shutil.copy(Path(cfg.out_dir) / "slac" / "pose_slac.log", dest / "slac" / "pose_slac.log")
+    print(json.dumps({tag: key, **scores}), flush=True)
+
+
+def score_optimize(key: str, cfg, ds: Dataset, dev) -> dict | None:
+    """The ladder's figures after ``optimize`` on the registration ``cfg`` points
+    at: 4n's (``score_deformed``) and 4d's rigid mode (the optimised fragment
+    poses' ATE and the posed clouds' surface error; its frame ATE needs the
+    frames, which ``register`` does not read)."""
+    if key == "deformed":
+        return milestones.score_deformed(cfg, ds, dev)
+    if key != "dist2":
+        return None
+    stages.run_optimize(cfg, device=dev)  # distorted_cfg: rigid mode
+    return {"rigid": {**milestones.frag_pose_ate(cfg, ds, dev),
+                      **milestones.cloud_surface_error(cfg, milestones.scenes_mod.livingroom_scene(), "rigid", ds, dev)}}
 
 
 def du(path: Path) -> int:
     return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
 
 
-def pack(root: Path, dest: Path, part: str, budget_mb: float, md5_file: Path | None, device: str) -> None:
+def pack(root: Path, dest: Path, parts: list[str], budget_mb: float, md5_file: Path | None, device: str,
+         keys) -> None:
     budget = budget_mb * (1 << 20)
     dest.mkdir(parents=True, exist_ok=True)
     left_out = []
     if md5_file is not None:
         # A later call renders the datasets again: hold its bytes to the earlier call's.
         want = json.loads(md5_file.read_text())
-        render_datasets(root, device)
-        for key, (_, data, _) in CONFIGS.items():
+        args = ladder_args(root, root / "unused.json", keys)
+        for key in keys:
+            render_dataset(key, root, args, device)
+            data = CONFIGS[key][1]
             got = {p.name: md5(p) for p in sorted((root / data / "depth").glob("*.png"))}
             same = sum(got.get(k) == v for k, v in want[key].items())
             print(json.dumps({"render_again": key, "frames": len(got), "same_bytes": same,
@@ -337,8 +460,10 @@ def pack(root: Path, dest: Path, part: str, budget_mb: float, md5_file: Path | N
             if same != len(want[key]):
                 raise SystemExit(f"{key}: the render differs from the earlier call's")
     digests = {}
-    for key, (_, data, art) in CONFIGS.items():
+    for key in keys:
+        _, data, art = CONFIGS[key]
         src, dst = root / art, dest / key
+        dst.mkdir(parents=True, exist_ok=True)
         for sub in ("fragments", "registration", "posegraph", "integrate", "slac"):
             if not (src / sub).exists():
                 continue
@@ -359,50 +484,70 @@ def pack(root: Path, dest: Path, part: str, budget_mb: float, md5_file: Path | N
             shutil.copy(root / data / name, dst / name)
         digests[key] = {p.name: md5(p) for p in sorted((root / data / "depth").glob("*.png"))}
     (dest / "depth_md5.json").write_text(json.dumps(digests))
-    for key, (_, data, art) in CONFIGS.items():
-        if part == "odometry":
-            for p in sorted((root / art / "fragments").glob("cloud_bin_*.pcd")):
-                if du(dest) + p.stat().st_size > budget:
-                    left_out.append(str(p.relative_to(root)))
-                    continue
-                shutil.copy(p, dest / key / "fragments" / p.name)
-    for key, (_, data, _) in CONFIGS.items():
-        paths = sorted((root / data / "depth").glob("*.png"))
-        frames = frame_sets(key, part, len(paths))
-        xz = dest / f"frames_{key}_{part}.xz"
-        size = write_frames([paths[k] for k in frames], xz)
-        h, w = read_depth_u16(paths[0]).shape
-        xz.with_suffix(".json").write_text(json.dumps({"frames": frames, "shape": [len(frames), h, w]}))
-        if du(dest) > budget:
-            xz.unlink()
-            xz.with_suffix(".json").unlink()
-            left_out.append(f"frames_{key}_{part} ({size} bytes)")
+    for key in keys if "odometry" in parts else ():
+        for p in sorted((root / CONFIGS[key][2] / "fragments").glob("cloud_bin_*.pcd")):
+            if du(dest) + p.stat().st_size > budget:
+                left_out.append(str(p.relative_to(root)))
+                continue
+            shutil.copy(p, dest / key / "fragments" / p.name)
+    for part in parts:
+        for key in keys:
+            paths = sorted((root / CONFIGS[key][1] / "depth").glob("*.png"))
+            frames = frame_sets(key, part, len(paths))
+            if not frames:
+                continue
+            xz = dest / f"frames_{key}_{part}.xz"
+            size = write_frames([paths[k] for k in frames], xz)
+            h, w = read_depth_u16(paths[0]).shape
+            xz.with_suffix(".json").write_text(json.dumps({"frames": frames, "shape": [len(frames), h, w]}))
+            if du(dest) > budget:
+                xz.unlink()
+                xz.with_suffix(".json").unlink()
+                left_out.append(f"frames_{key}_{part} ({size} bytes)")
     print(json.dumps({"packed": str(dest), "bytes": du(dest), "left_out": left_out}), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("verb", choices=["ladder", "seeds", "pack", "register"])
+    ap.add_argument("verb", choices=["ladder", "seeds", "pack", "register", "optimize"])
     ap.add_argument("--root", type=Path, default=Path("milestone_runs_gpu"))
     ap.add_argument("--results", type=Path, default=Path("milestones_gpu.json"))
     ap.add_argument("--trace", type=Path, default=None)
     ap.add_argument("--seeds", default="0,1,2,3,4")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--dest", type=Path, default=None)
-    ap.add_argument("--part", choices=["odometry", "render"], default="odometry")
+    ap.add_argument("--part", default="odometry", help="odometry, render or both, comma-separated")
+    ap.add_argument("--configs", default=",".join(CONFIGS), help="comma list of CONFIGS keys")
+    ap.add_argument("--data", default=None,
+                    help="a dataset directory under --root rendered elsewhere (the JAX package's render) in place of "
+                         "the configs' own; their artifacts go to <artifact directory>_on_<data>")
     ap.add_argument("--budget-mb", type=float, default=62.0)
     ap.add_argument("--md5", type=Path, default=None)
     ap.add_argument("--draws", type=Path, default=None)
+    ap.add_argument("--stages-from", type=Path, default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    keys = [k for k in args.configs.split(",") if k]
+    unknown = set(keys) - set(CONFIGS)
+    parts = args.part.split(",")
+    if unknown or not set(parts) <= {"odometry", "render"}:
+        ap.error(f"unknown configs {sorted(unknown)} or parts {parts}")
+    if args.data is not None:
+        if args.verb == "ladder" or "deformed" in keys:
+            ap.error("--data: the stage verbs of configs that read frames")
+        for k in keys:  # this invocation reads the configs' frames from --data
+            name, _, art = CONFIGS[k]
+            CONFIGS[k] = (name, args.data, f"{art}_on_{args.data}")
     if args.verb == "ladder":
-        run_ladder(args.root, args.results, args.trace)
+        run_ladder(args.root, args.results, args.trace, keys)
     elif args.verb == "seeds":
-        run_seeds(args.root, [int(s) for s in args.seeds.split(",")], args.out, args.device)
+        run_seeds(args.root, [int(s) for s in args.seeds.split(",")], args.out, args.device, keys)
     elif args.verb == "pack":
-        pack(args.root, args.dest, args.part, args.budget_mb, args.md5, args.device)
+        pack(args.root, args.dest, parts, args.budget_mb, args.md5, args.device, keys)
+    elif args.verb == "register":
+        run_register(args.root, args.draws, args.dest, args.device, keys)
     else:
-        run_register(args.root, args.draws, args.dest, args.device)
+        run_optimize_from(args.root, args.stages_from, args.dest, args.device, keys)
     return 0
 
 

@@ -6,8 +6,8 @@ upstream files, on the CPU, and scores both outputs with the port's
 evaluation, so that a departure is pinned to the stage or to its inputs.
 
     python tests/stage_diagnosis.py posegraph RUN DATA
-    python tests/stage_diagnosis.py optimize RUN DATA [--fragments K] [--capacity N] [--package jax|torch]
-    python tests/stage_diagnosis.py render RUN DATA --frames XZ [--scene livingroom|livingroom_bare]
+    python tests/stage_diagnosis.py optimize RUN DATA [--fragments K] [--capacity N] [--package jax|torch] [--stages-from DIR] [--modes M,...]
+    python tests/stage_diagnosis.py render RUN DATA --frames XZ [--scene livingroom|livingroom_bare|office|livingroom2]
     python tests/stage_diagnosis.py fragments RUN DATA --frames XZ --trace JSON [--reference DIR] [--port-cpu N] [--nudge]
     python tests/stage_diagnosis.py register RUN DATA [--window A-B] [--card DIR] [--nudge] [--save DIR] [--load DIR]
     python tests/stage_diagnosis.py draws FILE [--batches N]
@@ -22,21 +22,27 @@ ladder's ``ate_rmse_healthy``), and the kept edges. Then both packages' line
 process on the graph the stage built, at 8, 16 and 32 Gauss-Newton steps,
 against each other and a float64 run (``pgo_precision``).
 
-``optimize``: config 4n (``tools/milestones.py::run_deformed``'s settings).
-``RUN`` holds the warped ``fragments/``, ``registration/`` and ``posegraph/``;
-``--fragments K`` cuts them to the first K fragments (the edges among them).
-Runs both packages' ``run_optimize`` in rigid and nonrigid mode and prints
-each one's fragment-pose ATE, corrected-cloud surface error and
+``optimize``: config 4n (``RUN`` named ``deformed``; ``run_deformed``'s
+settings, rigid and nonrigid) or 4d (``dist2``; ``run_distorted``'s, rigid and
+slac; ``--modes`` picks some). ``RUN`` holds the ``fragments/``, ``registration/`` and ``posegraph/``;
+``--fragments K`` cuts them to the first K fragments (the edges among them);
+``--stages-from DIR`` takes ``registration/`` and ``posegraph/`` from ``DIR``
+(a ``register --save`` run) in place of ``RUN``'s.
+Runs both packages' ``run_optimize`` in each mode and prints each one's
+fragment-pose ATE, corrected-cloud surface error and, for 4n,
 ``surface_improvement`` (rigid surface RMSE over nonrigid).
 
 ``render``, ``fragments`` and ``register`` take what ``tests/ladder_card.py
 pack`` brought back from the card: ``RUN`` and ``DATA`` are one config's
-directory of the pack (``full`` for config 3, ``bare`` for 3d).
+directory of the pack, named by its ``ladder_card.CONFIGS`` key (``full``
+for config 3, ``bare`` for 3d, ``deformed`` for 4n, ``dist2`` for 4d,
+``office`` and ``livingroom2`` for 5); each stage runs at that config's
+settings (``stage_cfg``).
 
 ``render``: the JAX package's render of the frames in ``--frames`` (a packed
-``frames_<config>_render.xz``) at the ladder's settings (``--scene``, radius
-1.1 m, height 1.3 m, the full orbit, 1% noise from the numpy stream of seed
-0), written to millimetres as its PNG writer does, against the card's frames:
+``frames_<config>_render.xz``) at the ladder's settings (``--scene``, its
+orbit's radius (``RADII``), height 1.3 m, the full orbit, 1% noise from the
+numpy stream of seed 0), written to millimetres as its PNG writer does, against the card's frames:
 per frame the share of pixels whose validity differs, the share whose value
 differs and the largest difference in mm where both are valid; the bound is
 ``tests/test_torch_synthetic.py``'s (0.1% of the pixels, 1 mm).
@@ -201,8 +207,9 @@ def diagnose_posegraph(run: Path, data: Path) -> None:
         print(json.dumps({"pose_log_max_abs_diff": float(np.abs(j_pose - t_pose).max()),
                           "kept_edges_equal": kept["jax"] == kept["torch"],
                           "kept_edges": len(kept["jax"].splitlines())}))
-    trunk = min(int(ln.split()[0]) for ln in (run / "registration" / "odometry_suspect.txt").read_text().splitlines()
-                if ln.strip()) + 1
+    # The trunk ends after the first suspect odometry edge (3d's blind wall); without one it is every fragment.
+    trunk = min((int(ln.split()[0]) + 1 for ln in (run / "registration" / "odometry_suspect.txt").read_text().splitlines()
+                 if ln.strip()), default=len(graph["init"]))
     pgo_precision(graph["init"], graph["edges"], trunk)
 
 
@@ -260,14 +267,43 @@ def deformed_cfg(out: Path, capacity: int) -> JPipelineConfig:
     )
 
 
-def diagnose_optimize(run: Path, data: Path, k: int | None, capacity: int, packages) -> None:
+def distorted_cfg(out: Path, capacity: int) -> JPipelineConfig:
+    """``run_distorted``'s settings (``milestones.py:344-358``), clouds padded to ``capacity``."""
+    base = ladder_cfg(out)
+    return dataclasses.replace(
+        base, fragment=base.fragment._replace(cloud_capacity=capacity), slac_mode="rigid",
+        slac=base.slac._replace(disp_prior_weight=0.01, arap_weight=1.0, outer_iterations=8),
+        corres_max_distance=0.07, corres_rounds=5, corres_distance_decay=0.7, corres_baseline_weight=4.0,
+    )
+
+
+# The configs ``optimize`` runs: each one's settings and its ``--slac-mode``s.
+OPTIMIZE = {"deformed": (deformed_cfg, ("rigid", "nonrigid")), "dist2": (distorted_cfg, ("rigid", "slac"))}
+
+
+def stage_cfg(key: str, out: Path) -> JPipelineConfig:
+    """The JAX configuration of config ``key``'s stages (a ``ladder_card.CONFIGS``
+    key): 4n's and 4d's are ``run_deformed``'s and ``run_distorted``'s, the others
+    the ladder's. Every config registers and builds its pose graph as config 3
+    does; they differ from ``optimize`` on."""
+    return OPTIMIZE[key][0](out, 1 << 16) if key in OPTIMIZE else ladder_cfg(out)
+
+
+def diagnose_optimize(run: Path, data: Path, k: int | None, capacity: int, packages,
+                      stages_from: Path | None, modes: list[str] | None) -> None:
+    make_cfg, config_modes = OPTIMIZE[run.name]
     ds = gt_dataset(data)
     scene_sdf = scenes.livingroom_scene()
     with tempfile.TemporaryDirectory() as tmp:
         src = run
+        if stages_from is not None:
+            src = Path(tmp) / "stages_from"
+            shutil.copytree(run / "fragments", src / "fragments")
+            for sub in ("registration", "posegraph"):
+                shutil.copytree(stages_from / sub, src / sub)
         if k is not None:
-            src = Path(tmp) / "cut"
-            cut(run, src, k)
+            whole, src = src, Path(tmp) / "cut"
+            cut(whole, src, k)
         for pkg in packages:
             out = Path(tmp) / pkg
             for sub in ("fragments", "registration", "posegraph"):
@@ -276,21 +312,24 @@ def diagnose_optimize(run: Path, data: Path, k: int | None, capacity: int, packa
             if most > capacity:
                 raise ValueError(f"--capacity {capacity} would cut a cloud of {most} points")
             rec = {}
-            for mode in ("rigid", "nonrigid"):
-                jcfg = dataclasses.replace(deformed_cfg(out, capacity), slac_mode=mode)
+            for mode in modes or config_modes:
+                jcfg = dataclasses.replace(make_cfg(out, capacity), slac_mode=mode)
                 tcfg = interop.pipeline_config_from(jcfg)
                 t0 = time.time()
                 opt = j_stages.run_optimize(jcfg) if pkg == "jax" else t_stages.run_optimize(tcfg, device="cpu")
                 rec[mode] = {"seconds": time.time() - t0, "data_rmse": opt.get("rmse_after"),
                              **milestones.frag_pose_ate(tcfg, ds, "cpu"),
                              **milestones.cloud_surface_error(tcfg, scene_sdf, mode, ds, "cpu")}
-            rec["surface_improvement"] = rec["rigid"]["surface_rmse"] / max(rec["nonrigid"]["surface_rmse"], 1e-9)
-            print(json.dumps({"optimize": pkg, "fragments": k, "capacity": capacity, **rec}), flush=True)
+            if "rigid" in rec and "nonrigid" in rec:
+                rec["surface_improvement"] = rec["rigid"]["surface_rmse"] / max(rec["nonrigid"]["surface_rmse"], 1e-9)
+            print(json.dumps({"optimize": pkg, "fragments": k, "capacity": capacity,
+                              "stages_from": str(stages_from or run), **rec}), flush=True)
 
 
 # ----------------------------------------------------------- render, fragments, register
 
-NOISE, RADIUS, HEIGHT = 0.01, 1.1, 1.3  # the ladder's dataset (tools/milestones.py::gen)
+NOISE, HEIGHT = 0.01, 1.3  # the ladder's dataset (tools/milestones.py::gen)
+RADII = {"livingroom": 1.1, "livingroom_bare": 1.1, **milestones.SCENE_RADII}  # each scene's orbit, m
 RENDER_BOUND = {"share": 1e-3, "mm": 1}  # tests/test_torch_synthetic.py: 0.1% of the pixels, 1 mm
 POSE_BOUND = 1e-3  # tests/test_torch_bench.py: build_fragment's local poses
 
@@ -308,9 +347,10 @@ def diagnose_render(run: Path, data: Path, frames_xz: Path, scene: str) -> None:
     frames, card = ladder_card.read_frames(frames_xz)
     intr = jax_intrinsics(data)
     n = len(io_logfmt.read_log(data / "gt.log").entries)
-    poses = j_scenes.orbit_trajectory(n, radius=RADIUS, height=HEIGHT, sweep=2.0 * np.pi)
+    poses = j_scenes.orbit_trajectory(n, radius=RADII[scene], height=HEIGHT, sweep=2.0 * np.pi)
     gt_err = float(np.abs(poses - gt_dataset(data).gt_poses).max())
-    sdf = j_scenes.livingroom_scene(bare_minus_z=scene == "livingroom_bare")
+    sdf = {"office": j_scenes.office_scene, "livingroom2": j_scenes.livingroom2_scene}.get(
+        scene, lambda: j_scenes.livingroom_scene(bare_minus_z=scene == "livingroom_bare"))()
     render = jax.jit(lambda ps: j_render.render_sequence(sdf, ps, intr, max_depth=6.0))
     # generate_synthetic's noise: one normal draw a pixel, 16 frames a chunk, in order.
     rng = np.random.default_rng(0)
@@ -488,13 +528,13 @@ def write_draws(out: Path, batches: int) -> None:
     print(json.dumps({"draws": str(out), "batches": batches, "batch": B, "hypotheses": H}), flush=True)
 
 
-def run_register(pkg: str, out: Path) -> dict:
-    """One package's ``run_registration`` at the ladder's settings (the port's
+def run_register(pkg: str, out: Path, key: str) -> dict:
+    """One package's ``run_registration`` at config ``key``'s settings (the port's
     on the JAX stage's draws), with what its drift gate chose and every pair's result."""
     import elasticreconstruction_tpu.registration as j_reg
     import elasticreconstruction_tpu.registration.retrieval as j_retrieval
 
-    jcfg = ladder_cfg(out)
+    jcfg = stage_cfg(key, out)
     if pkg == "torch":
         return ladder_card.port_registration(interop.pipeline_config_from(jcfg), "cpu",
                                              jax_draws(jcfg.seed, jcfg.registration_batch,
@@ -518,6 +558,15 @@ def run_register(pkg: str, out: Path) -> dict:
     return ladder_card.collect(calls, seen, stats)
 
 
+def ensure_gt_benchmark(run: Path, data: Path) -> None:
+    """``RUN/registration/gt.log`` and ``gt.info``, the ground-truth pair benchmark
+    that ``evaluate`` writes, made by the port's ``run_make_gt_benchmark`` where
+    the ladder ran no ``evaluate`` on ``RUN`` (4n)."""
+    if not (run / "registration" / "gt.log").exists():
+        cfg = interop.pipeline_config_from(stage_cfg(run.name, run))
+        t_stages.run_make_gt_benchmark(SimpleNamespace(root=data, **vars(gt_dataset(data))), cfg, device="cpu")
+
+
 def loop_pr(out: Path, gt_dir: Path) -> dict:
     gt_edges, gt_infos = gtb.read_gt_benchmark(gt_dir)
     loop = io_logfmt.read_log(out / "registration" / "loop.log")
@@ -528,6 +577,8 @@ def loop_pr(out: Path, gt_dir: Path) -> dict:
 def diagnose_register(run: Path, data: Path, window: str | None, packages, save: Path | None,
                       card: Path | None, load: Path | None) -> None:
     gt = gt_dataset(data).gt_poses
+    key = run.name
+    ensure_gt_benchmark(run, data)
     with tempfile.TemporaryDirectory() as tmp:
         src, a = run, 0
         if window:
@@ -548,16 +599,16 @@ def diagnose_register(run: Path, data: Path, window: str | None, packages, save:
                 shutil.copytree(saved / "registration", out / "registration")
             elif pkg == "jax_nudged":
                 nudge_clouds(out / "fragments")
-                got[pkg] = run_register("jax", out)
+                got[pkg] = run_register("jax", out, key)
             else:
-                got[pkg] = run_register(pkg, out)
+                got[pkg] = run_register(pkg, out, key)
             stats, t_reg = got[pkg]["stats"], time.time() - t0
             got[pkg]["odometry"] = io_logfmt.read_log(out / "registration" / "odometry.log").matrices()
             got[pkg]["odometry_suspect"] = (out / "registration" / "odometry_suspect.txt").read_text()
             if pkg != "torch":
-                j_stages.run_posegraph(ladder_cfg(out))
+                j_stages.run_posegraph(stage_cfg(key, out))
             else:
-                t_stages.run_posegraph(interop.pipeline_config_from(ladder_cfg(out)), device="cpu")
+                t_stages.run_posegraph(interop.pipeline_config_from(stage_cfg(key, out)), device="cpu")
             print(json.dumps({"register": pkg, "window": window, "seconds": t_reg,
                               "where": "card" if pkg == "torch" and card is not None else "CPU",
                               **{k: stats.get(k) for k in ("pairs", "accepted", "suspect_odometry_edges",
@@ -654,8 +705,10 @@ def main(argv=None) -> int:
                     help="register, fragments: the JAX stage again on inputs moved by one f32 ulp (nudge_clouds; the "
                          "depth frames)")
     ap.add_argument("--frames", type=Path, default=None, help="render, fragments: a packed frames_*.xz")
-    ap.add_argument("--scene", choices=["livingroom", "livingroom_bare"], default="livingroom",
-                    help="render: the scene the frames show")
+    ap.add_argument("--scene", choices=sorted(RADII), default="livingroom", help="render: the scene the frames show")
+    ap.add_argument("--modes", default=None, help="optimize: these --slac-modes only (comma list)")
+    ap.add_argument("--stages-from", type=Path, default=None,
+                    help="optimize: registration/ and posegraph/ from this directory (a register --save run)")
     ap.add_argument("--trace", type=Path, default=None, help="fragments: the card's odometry_trace.json")
     ap.add_argument("--reference", type=Path, default=None,
                     help="fragments: the reference's fragments/ (health_<f>.json) to print beside")
@@ -688,9 +741,11 @@ def main(argv=None) -> int:
         write_draws(args.run, args.batches)
     elif args.stage == "cut":
         a, b = (int(x) for x in args.window.split("-"))
+        ensure_gt_benchmark(args.run, args.run)
         cut_window(args.run, args.data, a, b, normals=not args.no_normals)
     else:
-        diagnose_optimize(args.run, args.data, args.fragments, args.capacity, packages)
+        diagnose_optimize(args.run, args.data, args.fragments, args.capacity, packages, args.stages_from,
+                          args.modes and args.modes.split(","))
     return 0
 
 
