@@ -891,7 +891,8 @@ def device_profile(name: str, fn, top: int = 6, warm: bool = True) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # The port's spans (core/trace.py) add CUDA-typed user annotations over their kernels: not device ops.
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import camera as cam
-from ..core import se3
+from ..core import se3, trace
 from ..core.types import PointCloud
 from ..kernels import tsdf as _tsdf
 from .kinfu import OdometryConfig, track_frame
@@ -73,7 +73,8 @@ def build_fragment(
     ocfg = cfg.odometry
     eye = se3.identity(device=dev)
     vol = _tsdf.make_volume(cfg.volume_shape, cfg.voxel_size, _volume_origin(cfg), device=dev)
-    vol = _tsdf.fuse(vol, depths[0], eye, intr, **fuse_kw)
+    with trace.span("odometry.fuse"):
+        vol = _tsdf.fuse(vol, depths[0], eye, intr, **fuse_kw)
     v_trusted = torch.zeros(6, dtype=torch.float32, device=dev) if init_velocity is None else init_velocity
     T_prev = eye
     poses, fits, rmses, obss = [eye], [], [], []
@@ -83,21 +84,24 @@ def build_fragment(
         # trusted velocity, which is re-estimated only on healthy frames.
         gain = ocfg.velocity_gain
         T_pred = T_prev @ se3.exp(gain * v_trusted) if gain > 0 else T_prev
-        tr = track_frame(vol, depth, T_pred, intr, ocfg)
+        with trace.span("odometry.track"):
+            tr = track_frame(vol, depth, T_pred, intr, ocfg)
         lost = tr.fitness < 1e-3
         pose = torch.where(lost, T_pred, tr.pose)
         healthy = ~lost & (tr.obs_ratio > ocfg.healthy_obs_ratio) & (tr.fitness > ocfg.healthy_fitness)
         # EMA over healthy frames (~10-frame horizon).
         v_obs = se3.log(se3.inverse(T_prev) @ pose)
         v_trusted = torch.where(healthy, 0.8 * v_trusted + 0.2 * v_obs, v_trusted)
-        vol = _tsdf.fuse(vol, depth, pose, intr, **fuse_kw)
+        with trace.span("odometry.fuse"):
+            vol = _tsdf.fuse(vol, depth, pose, intr, **fuse_kw)
         T_prev = pose
         poses.append(pose)
         fits.append(tr.fitness)
         rmses.append(tr.rmse)
         obss.append(tr.obs_ratio)
     one = torch.ones((), dtype=torch.float32, device=dev)
-    cloud = _tsdf.extract_surface_points(vol, capacity=cfg.cloud_capacity)
+    with trace.span("odometry.extract"):
+        cloud = _tsdf.extract_surface_points(vol, capacity=cfg.cloud_capacity)
     return FragmentResult(
         cloud=cloud,
         local_poses=torch.stack(poses),

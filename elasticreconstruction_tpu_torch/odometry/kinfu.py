@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import camera as cam
-from ..core import se3
+from ..core import se3, trace
 from ..core.types import f32_reciprocal
 from ..kernels import raycast as rc
 from ..kernels.tsdf import TSDFVolume
@@ -156,8 +156,9 @@ def track_frame(
     projective GN; coarser levels only shrink the data term.
     """
     m_intr = intr.scaled(1.0 / cfg.raycast_scale) if cfg.raycast_scale > 1 else intr
-    model = rc.raycast(vol, init_pose, m_intr, depth_min=cfg.depth_min, depth_max=cfg.depth_max,
-                       num_steps=cfg.raycast_steps)
+    with trace.span("odometry.raycast"):
+        model = rc.raycast(vol, init_pose, m_intr, depth_min=cfg.depth_min, depth_max=cfg.depth_max,
+                           num_steps=cfg.raycast_steps)
     depths = [depth]
     intrs = [intr]
     for _ in range(cfg.levels - 1):
@@ -169,8 +170,9 @@ def track_frame(
     fitness, rmse, obs = zero, zero, zero + 1.0
     for lvl in range(cfg.levels - 1, -1, -1):  # coarse -> fine
         iters = cfg.iterations[min(lvl, len(cfg.iterations) - 1)]
-        T, n_ok, rmse, obs = _gn_level(depths[lvl], intrs[lvl], model, init_pose, m_intr, T, init_pose,
-                                       iters, cfg)
+        with trace.span("odometry.gn_level"):
+            T, n_ok, rmse, obs = _gn_level(depths[lvl], intrs[lvl], model, init_pose, m_intr, T, init_pose,
+                                           iters, cfg)
         if lvl == 0:
             n_valid = torch.clamp_min((depths[0] > 0).to(torch.float32).sum(), 1.0)
             fitness = n_ok / n_valid

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import se3
+from ..core import se3, trace
 from ..core.types import PointCloud
 from ..kernels import knn as _knn
 from ..kernels.cuda import icp_step as _icp_step
@@ -107,6 +107,7 @@ def icp_point_to_plane_batch(
             T, delta, (n_in, rmse) = _step_batch(
                 src_pts, src_mask, dst, T, max_correspondence_distance, damping, fused_step
             )
+            trace.count("icp_steps")
             converged = (delta * delta).sum(-1) <= _TOL2
             hopeless = (n_in / n_src < _HOPELESS_FITNESS) & (it + 1 >= probe_iters)
             if dead is not None:

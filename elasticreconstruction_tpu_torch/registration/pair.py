@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import se3
+from ..core import se3, trace
 from ..core.types import PointCloud, RegistrationResult, resolve_device
 from ..kernels import fpfh as _fpfh
 from ..kernels import knn as _knn
@@ -80,16 +80,21 @@ def _stack(clouds: list[PointCloud]) -> PointCloud:
 
 
 def _prep_coarse(cloud: PointCloud, cfg: RegistrationConfig):
-    ds = _voxel.voxel_downsample(cloud, cfg.voxel_size, cfg.coarse_capacity)
-    ds = _normals.estimate_normals_radius(ds, cfg.voxel_size * cfg.normal_radius_factor)
-    return ds, _fpfh.fpfh_radius(ds, cfg.voxel_size * cfg.fpfh_radius_factor)
+    with trace.span("registration.voxel"):
+        ds = _voxel.voxel_downsample(cloud, cfg.voxel_size, cfg.coarse_capacity)
+    with trace.span("registration.normals"):
+        ds = _normals.estimate_normals_radius(ds, cfg.voxel_size * cfg.normal_radius_factor)
+    with trace.span("registration.fpfh"):
+        return ds, _fpfh.fpfh_radius(ds, cfg.voxel_size * cfg.fpfh_radius_factor)
 
 
 def _fine(cloud: PointCloud, cfg: RegistrationConfig, with_normals: bool = True) -> PointCloud:
-    ds = _voxel.voxel_downsample(cloud, cfg.icp_voxel_size, cfg.fine_capacity)
+    with trace.span("registration.voxel"):
+        ds = _voxel.voxel_downsample(cloud, cfg.icp_voxel_size, cfg.fine_capacity)
     if not with_normals:
         return ds
-    return _normals.estimate_normals_radius(ds, cfg.icp_voxel_size * cfg.normal_radius_factor)
+    with trace.span("registration.normals"):
+        return _normals.estimate_normals_radius(ds, cfg.icp_voxel_size * cfg.normal_radius_factor)
 
 
 def prep_fragments_batch(
@@ -99,15 +104,17 @@ def prep_fragments_batch(
 
     ``clouds`` holds ``(F, N, ...)`` arrays (numpy or tensors).
     """
-    clouds = _as_cloud(clouds, resolve_device(device))
-    coarse, feats, fine = [], [], []
-    for f in range(clouds.points.shape[0]):
-        cloud = clouds.take(f)
-        ds, feat = _prep_coarse(cloud, config)
-        coarse.append(ds)
-        feats.append(feat)
-        fine.append(_fine(cloud, config))
-    return PreppedFragments(coarse=_stack(coarse), features=torch.stack(feats), fine=_stack(fine))
+    with trace.span("registration.prep"):
+        clouds = _as_cloud(clouds, resolve_device(device))
+        trace.count("fragments", clouds.points.shape[0])
+        coarse, feats, fine = [], [], []
+        for f in range(clouds.points.shape[0]):
+            cloud = clouds.take(f)
+            ds, feat = _prep_coarse(cloud, config)
+            coarse.append(ds)
+            feats.append(feat)
+            fine.append(_fine(cloud, config))
+        return PreppedFragments(coarse=_stack(coarse), features=torch.stack(feats), fine=_stack(fine))
 
 
 def _indices(ix, dev: torch.device) -> torch.Tensor:
@@ -164,63 +171,71 @@ def register_pairs_batch(
     if pair_indices is None:
         pair_indices = (torch.zeros(b, dtype=torch.int32), torch.ones(b, dtype=torch.int32))
     pair_indices = tuple(torch.as_tensor(x, device=dev).to(torch.int32) for x in pair_indices)
-    side_i = [_prep_coarse(clouds_i.take(k), config) for k in range(b)]
-    side_j = [_prep_coarse(clouds_j.take(k), config) for k in range(b)]
+    with trace.span("registration.prep"):
+        trace.count("fragments", 2 * b)
+        side_i = [_prep_coarse(clouds_i.take(k), config) for k in range(b)]
+        side_j = [_prep_coarse(clouds_j.take(k), config) for k in range(b)]
+        fine_i = _stack([_fine(clouds_i.take(k), config) for k in range(b)])
+        fine_j = _stack([_fine(clouds_j.take(k), config, with_normals=False) for k in range(b)])
     return _register_core(
         _stack([d for d, _ in side_i]), torch.stack([f for _, f in side_i]),
         _stack([d for d, _ in side_j]), torch.stack([f for _, f in side_j]),
-        _stack([_fine(clouds_i.take(k), config) for k in range(b)]),
-        _stack([_fine(clouds_j.take(k), config, with_normals=False) for k in range(b)]),
-        config, pair_indices, generator, draws, fused_step,
+        fine_i, fine_j, config, pair_indices, generator, draws, fused_step,
     )
 
 
 def _register_core(ds_i, feat_i, ds_j, feat_j, fine_i, fine_j, cfg, pair_indices,
                    generator, draws, fused_step) -> RegistrationResult:
     """Matching -> RANSAC -> batched ICP -> info matrix on prepped ``(B, ...)`` inputs."""
-    corr, corr_mask = _features.match_features(feat_j, ds_j.mask, feat_i, ds_i.mask)
-    rr = _ransac.ransac_alignment(
-        ds_j.points, ds_i.points, corr, corr_mask, generator,
-        draws=draws,
-        inlier_threshold=cfg.inlier_threshold,
-        edge_similarity=cfg.edge_similarity,
-        num_hypotheses=cfg.num_hypotheses,
-    )
-    icp_src = (
-        PointCloud(*(x[:, :: cfg.icp_src_stride] for x in fine_j))
-        if cfg.icp_src_stride > 1
-        else fine_j
-    )
-    ir = _icp.icp_point_to_plane_batch(
-        icp_src,
-        fine_i,
-        rr.transform,
-        max_correspondence_distance=cfg.inlier_threshold,
-        iterations=cfg.icp_iterations,
-        coarse_iterations=cfg.icp_coarse_iterations,
-        coarse_stride=cfg.icp_coarse_stride,
-        # RANSAC-failed lanes can never pass the success test below: they
-        # must not hold the batch's ICP early exit.
-        dead=rr.num_inliers < cfg.min_inliers,
-        fused_step=fused_step,
-    )
-    # Information matrix over src points in the target (i) frame, restricted
-    # to points with a close match under the final transform.
-    info = _information(ir.transform, fine_i, fine_j, cfg.inlier_threshold)
-    success = (
-        (rr.num_inliers >= cfg.min_inliers)
-        & (ir.fitness >= cfg.min_fitness)
-        & torch.isfinite(ir.transform).all(-1).all(-1)
-    )
-    return RegistrationResult(
-        i=pair_indices[0],
-        j=pair_indices[1],
-        transform=ir.transform,
-        information=info,
-        num_inliers=rr.num_inliers,
-        fitness=ir.fitness,
-        success=success,
-    )
+    with trace.span("registration.batch"):
+        trace.count("pairs", ds_i.points.shape[0])
+        with trace.span("registration.match"):
+            corr, corr_mask = _features.match_features(feat_j, ds_j.mask, feat_i, ds_i.mask)
+        with trace.span("registration.ransac"):
+            rr = _ransac.ransac_alignment(
+                ds_j.points, ds_i.points, corr, corr_mask, generator,
+                draws=draws,
+                inlier_threshold=cfg.inlier_threshold,
+                edge_similarity=cfg.edge_similarity,
+                num_hypotheses=cfg.num_hypotheses,
+            )
+        icp_src = (
+            PointCloud(*(x[:, :: cfg.icp_src_stride] for x in fine_j))
+            if cfg.icp_src_stride > 1
+            else fine_j
+        )
+        with trace.span("registration.icp"):
+            ir = _icp.icp_point_to_plane_batch(
+                icp_src,
+                fine_i,
+                rr.transform,
+                max_correspondence_distance=cfg.inlier_threshold,
+                iterations=cfg.icp_iterations,
+                coarse_iterations=cfg.icp_coarse_iterations,
+                coarse_stride=cfg.icp_coarse_stride,
+                # RANSAC-failed lanes can never pass the success test below: they
+                # must not hold the batch's ICP early exit.
+                dead=rr.num_inliers < cfg.min_inliers,
+                fused_step=fused_step,
+            )
+        # Information matrix over src points in the target (i) frame, restricted
+        # to points with a close match under the final transform.
+        with trace.span("registration.infomat"):
+            info = _information(ir.transform, fine_i, fine_j, cfg.inlier_threshold)
+        success = (
+            (rr.num_inliers >= cfg.min_inliers)
+            & (ir.fitness >= cfg.min_fitness)
+            & torch.isfinite(ir.transform).all(-1).all(-1)
+        )
+        return RegistrationResult(
+            i=pair_indices[0],
+            j=pair_indices[1],
+            transform=ir.transform,
+            information=info,
+            num_inliers=rr.num_inliers,
+            fitness=ir.fitness,
+            success=success,
+        )
 
 
 def _information(T, fine_i: PointCloud, fine_j: PointCloud, threshold: float) -> torch.Tensor:
