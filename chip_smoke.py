@@ -22,7 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the first 8192 queries against every ref, indices equal and d2 within
    1e-5; 64 or more ref splits and a scratch cache grown to them. The compare+select and threshold-sum chains must
    equal their plain versions bit for bit; the FMA chain within 2e-5 relative
-   (one rounding per step against the plain version's two, 64 steps).
+   (one rounding per step against the plain version's two, 64 steps). The
+   raycast kernel must equal ``raycast_plain`` bit for bit (``valid``, vertices,
+   normals) on the benchmark configuration's 512^3 volume fused from four
+   orbit frames, at 640x480 and 295 steps from a fused pose and a moved one,
+   and at ``raycast_scale=2``; its bound counts the distinct voxels its march
+   reads.
 4. Registration path at full width: 6 fragments of 20 000 points (the registration
    benchmark's scene), ``prep_fragments_batch`` and ``register_prepped_batch``
    with ``RegistrationConfig()`` defaults over all 15 pairs x4 in 4 batches of
@@ -60,7 +65,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    2 cm / 0.02 rad of ground truth, every fragment's tracking fitness above
    0.5, more than 20 000 points per cloud, the clouds on the scene surface
    (mean |SDF| under 3 cm), both odometry edges within 2 cm / 0.02 rad at the
-   fragment's centroid, and ``nearest_batch`` launched by ``register``. Printed:
+   fragment's centroid, ``nearest_batch`` launched by ``register``, and the
+   raycast kernel launched once for every tracked frame. Printed:
    render and verb seconds, frames/s, per-frame ms of fuse, raycast, the
    Gauss-Newton levels of ``track_frame`` and surface extraction (device time
    by ``cuda_ms``, wall time, profiled device-busy time), host synchronisations
@@ -217,6 +223,13 @@ ALL_ARTIFACTS = ("fragments/fragments.log", "registration/odometry.log", "regist
                  "integrate/ate.json", "registration/gt.log", "registration/gt.info",
                  "registration/registration_pr.json")
 CALIB_PARITY_SHAPE = (4096, 512)
+# The raycast held against its plain version at the benchmark configuration's
+# sizes (benchmark/configs/livingroom_full_640.json): 512^3 voxels of 7.8125
+# mm, 295 steps over [0.1, 6.0] m.
+RAYCAST_VOLUME = (512, 512, 512)
+RAYCAST_VOXEL = 0.0078125
+RAYCAST_STEPS = 295
+RAYCAST_DEPTH = (0.1, 6.0)
 # Elastic path: milestone config 4 (milestones.py:315-324) on the fragments
 # path's directory, cut as config 3 is (3 fragments, full preset), in each mode.
 ELASTIC_MODES = ("rigid", "slac", "nonrigid")
@@ -652,6 +665,71 @@ def check_nearest_at_harvest_shape(rng, dev, capacity: int = HARVEST_CAPACITY, p
             "splits": geo.splits, "scratch_mb": 4 * floats / 1e6, "valid_ref_share": valid_share}
 
 
+def raycast_volume(dev, frames: int = 4):
+    """The benchmark configuration's 512^3 volume of 7.8125 mm voxels, placed as
+    ``build_fragment`` places it and fused from ``frames`` frames of the
+    livingroom orbit (2 pi over 2550 frames); and the frames' fragment poses."""
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
+    from elasticreconstruction_tpu_torch.kernels import tsdf
+    from elasticreconstruction_tpu_torch.odometry.fragments import FragmentConfig, _volume_origin
+    from elasticreconstruction_tpu_torch.synthetic import render, scenes
+
+    cfg = FragmentConfig(volume_shape=RAYCAST_VOLUME, voxel_size=RAYCAST_VOXEL, volume_min_z=0.3)
+    world = scenes.orbit_trajectory(frames, radius=1.1, height=1.3, sweep=2 * np.pi * frames / 2550,
+                                    start_angle=0.7)
+    depths = render.render_sequence(scenes.livingroom_scene(), torch.from_numpy(world).to(dev), PRIMESENSE)
+    local = np.linalg.inv(world[0].astype(np.float64)) @ world.astype(np.float64)
+    poses = torch.from_numpy(local.astype(np.float32)).to(dev)
+    vol = tsdf.make_volume(cfg.volume_shape, cfg.voxel_size, _volume_origin(cfg), device=dev)
+    for d, T in zip(depths, poses):
+        vol = tsdf.fuse(vol, d, T, PRIMESENSE, max_weight=64.0, depth_min=0.1, depth_max=6.0)
+    return vol, poses
+
+
+def check_raycast(dev) -> dict:
+    """The raycast kernel against ``raycast_plain`` on the benchmark
+    configuration's volume: ``valid`` equal and vertices and normals bit for
+    bit at 640x480 from a fused pose and from one moved off it, and at
+    ``raycast_scale=2``; every call made twice. Times of the kernel and the
+    plain version, and the bytes bound: the distinct marched voxels (tsdf and
+    weight), the ray directions and the outputs, at 3.35 TB/s."""
+    from kernels_bench_gpu import raycast_march_voxels
+
+    from elasticreconstruction_tpu_torch.core import se3
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
+    from elasticreconstruction_tpu_torch.kernels import raycast as rc
+
+    vol, poses = raycast_volume(dev)
+    moved = se3.exp(torch.tensor([0.02, -0.01, 0.015, 0.01, -0.02, 0.005], device=dev)) @ poses[2]
+    kw = dict(depth_min=RAYCAST_DEPTH[0], depth_max=RAYCAST_DEPTH[1], num_steps=RAYCAST_STEPS)
+    cases = {"fused_pose": (poses[3], PRIMESENSE), "moved_pose": (moved, PRIMESENSE),
+             "raycast_scale_2": (poses[3], PRIMESENSE.scaled(0.5))}
+    by_case = {}
+    for name, (pose, intr) in cases.items():
+        want = rc.raycast_plain(vol, pose, intr, **kw)
+        got = twice(f"raycast {name}", lambda: tuple(rc.raycast(vol, pose, intr, **kw)))
+        differ = got[2] != want.valid
+        for g, w in zip(got[:2], want[:2]):
+            differ |= (g.view(torch.int32) != w.view(torch.int32)).any(-1)
+        by_case[name] = {"pixels_differing": int(differ.sum()), "valid_share": want.valid.float().mean().item(),
+                         "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got[:2], want[:2]))}
+        if by_case[name]["pixels_differing"]:
+            fail(f"raycast {name}: {by_case[name]['pixels_differing']} pixels differ from the plain version")
+    pose, intr = cases["fused_pose"]
+    ms = cuda_ms(lambda: rc.raycast(vol, pose, intr, **kw))
+    plain = cuda_ms(lambda: rc.raycast_plain(vol, pose, intr, **kw), reps=3, warmup=1)
+    voxels, steps_mean = raycast_march_voxels(vol, pose, intr, RAYCAST_STEPS, *RAYCAST_DEPTH)
+    pixels = intr.width * intr.height
+    nbytes = 8 * voxels + 12 * pixels + 25 * pixels
+    bnd, by = bound_ms(0.0, nbytes)
+    rec = {"ms": ms, "call_ms": call_ms(lambda: rc.raycast(vol, pose, intr, **kw)), "plain_ms": plain,
+           "library_ms": None, "bound_ms": bnd, "bound_by": by, "bytes": nbytes, "march_voxels": voxels,
+           "steps_marched_mean": steps_mean, "max_abs_err": max(c["max_abs_err"] for c in by_case.values()),
+           "shape": [*RAYCAST_VOLUME, intr.height, intr.width, RAYCAST_STEPS], "by_case": by_case}
+    print(json.dumps({"raycast": rec}))
+    return rec
+
+
 def phase_kernel_parity() -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -672,13 +750,16 @@ def phase_kernel_parity() -> dict:
     nn_by_shape, icp_by_shape = numbers(nn_by_shape), numbers(icp_by_shape)
     return {"nearest_batch": dict(nn_by_shape[0], by_shape=nn_by_shape),
             "normal_eqs_batch": dict(icp_by_shape[0], by_shape=icp_by_shape),
+            "raycast": check_raycast(dev),
             **check_calib_kernels()}
 
 
 def launch_counts() -> dict:
     from elasticreconstruction_tpu_torch.kernels.cuda import calib, icp_step, nn
+    from elasticreconstruction_tpu_torch.kernels.cuda import raycast as rc_cuda
 
-    return {"nearest_batch": nn.launches, "normal_eqs_batch": icp_step.launches, **calib.launches}
+    return {"nearest_batch": nn.launches, "normal_eqs_batch": icp_step.launches, "raycast": rc_cuda.launches,
+            **calib.launches}
 
 
 def launches_by_shape() -> dict:
@@ -691,9 +772,11 @@ def launches_by_shape() -> dict:
 
 def reset_launch_counts() -> None:
     from elasticreconstruction_tpu_torch.kernels.cuda import calib, icp_step, nn
+    from elasticreconstruction_tpu_torch.kernels.cuda import raycast as rc_cuda
 
     nn.launches = 0
     icp_step.launches = 0
+    rc_cuda.launches = 0
     nn.launches_by_shape.clear()
     icp_step.launches_by_shape.clear()
     for name in calib.launches:
@@ -738,7 +821,7 @@ def phase_calibration() -> dict:
     entries = kb.bench_kernels(cal["peaks"], None, "cuda")
     counts = launch_counts()
     print(json.dumps({"calibration_launches_by_shape": launches_by_shape()}))
-    require_launched("calibration", counts, counts)
+    require_launched("calibration", counts, calib.launches)
     print(json.dumps({"calibrated_peaks": {
         k: {"value": v, "share_of_data_sheet": cal["share_of_data_sheet"][k]} for k, v in cal["peaks"].items()}}))
     print(json.dumps({"scored_kernels": entries}))
@@ -1138,7 +1221,7 @@ def fragments_path(dev, tmp: str, intr, num_frames: int, extra_argv=(), seed: in
         if dev.type == "cuda":
             rec[verb + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     nf = max(1, (num_frames - 1) // K)
-    rec.update(fragments=nf, seconds_per_fragment=rec["fragments_s"] / nf,
+    rec.update(fragments=nf, tracked_frames=nf * K, seconds_per_fragment=rec["fragments_s"] / nf,
                frames_per_second=nf * (K + 1) / rec["fragments_s"])
 
     faults = []
@@ -1198,7 +1281,10 @@ def phase_fragments(tmp: str, seed: int = 0) -> dict:
     rec = fragments_path(dev, tmp, PRIMESENSE, FRAG_FRAMES, seed=seed)
     rec["launches"] = launch_counts()
     print(json.dumps({"fragments_path_launches_by_shape": launches_by_shape()}))
-    require_launched("fragments", rec["launches"], ["nearest_batch"])
+    require_launched("fragments", rec["launches"], ["nearest_batch", "raycast"])
+    if rec["launches"]["raycast"] != rec["tracked_frames"]:
+        fail(f"fragments path: {rec['launches']['raycast']} raycast launches for {rec['tracked_frames']} "
+             "tracked frames")
     phase_done("fragments path: render, fragments, register and posegraph verbs")
 
     # Per-frame costs at full width: frame 1 against the model of frame 0,
@@ -2440,6 +2526,10 @@ KERNELS = {
     "normal_eqs_batch": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/icp_step.cu",
         "replaces": "elasticreconstruction_tpu/kernels/pallas/icp_step.py:168",
+    },
+    "raycast": {
+        "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/raycast.cu",
+        "replaces": "none: elasticreconstruction_tpu/kernels/raycast.py::raycast is plain jnp",
     },
     "fma_chain": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/calib.cu",

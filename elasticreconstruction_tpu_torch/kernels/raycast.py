@@ -1,12 +1,16 @@
 """TSDF raycasting: the model view for frame-to-model odometry.
 
 Counterpart of ``elasticreconstruction_tpu/kernels/raycast.py`` (plain jnp
-there, plain PyTorch ops here). All rays march in lockstep for a fixed number
-of steps, reading one nearest voxel per step from the combined sampling
-volume; the bracketed zero crossing is then refined with trilinear samples
-(half a step early, three bisections, a secant) and the normal taken from the
-TSDF gradient. Every step is a handful of elementwise ops over the image, and
-no step reads anything back to the host.
+there). :func:`raycast` runs :func:`raycast_plain` for CPU tensors and the
+hand-written CUDA kernel (``kernels/cuda/raycast.py``, ``csrc/raycast.cu``)
+for CUDA tensors; the two agree bit for bit on the card.
+
+The plain version marches all rays in lockstep for a fixed number of steps,
+reading one nearest voxel per step from the combined sampling volume; the
+bracketed zero crossing is then refined with trilinear samples (half a step
+early, three bisections, a secant) and the normal taken from the TSDF
+gradient. Every step is a handful of elementwise ops over the image, and no
+step reads anything back to the host.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from ..core import camera as cam
 from ..core import se3
 from ..core.types import fma
+from .cuda import raycast as _cuda
 from .tsdf import TSDFVolume, _gradient, _nearest, _trilinear, make_sampling_volume
 
 
@@ -40,8 +45,29 @@ def raycast(
     """March camera rays (``pose`` = camera-to-world) through the volume.
 
     Step size is chosen so ``num_steps`` covers [depth_min, depth_max]; keep
-    it <= half the truncation band for reliable crossing detection.
+    it <= half the truncation band for reliable crossing detection. A volume
+    on the CPU runs :func:`raycast_plain`; one on the card launches the CUDA
+    kernel (or raises).
     """
+    kw = dict(depth_min=depth_min, depth_max=depth_max, num_steps=num_steps)
+    dev = vol.tsdf.device
+    if dev.type == "cpu":
+        return raycast_plain(vol, pose, intr, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"raycast: unsupported device {dev}")
+    return RaycastResult(*_cuda.raycast_cuda(vol, pose, intr, **kw))
+
+
+def raycast_plain(
+    vol: TSDFVolume,
+    pose: torch.Tensor,
+    intr: cam.Intrinsics,
+    *,
+    depth_min: float = 0.1,
+    depth_max: float = 6.0,
+    num_steps: int = 192,
+) -> RaycastResult:
+    """Plain PyTorch version of :func:`raycast`: every ray marched in lockstep."""
     dev = vol.tsdf.device
     dirs_cam = cam.ray_directions(intr, device=dev)
     h, w = dirs_cam.shape[:2]

@@ -242,6 +242,42 @@ def _sol(entry: dict, peaks: dict) -> dict:
     return entry
 
 
+def raycast_march_voxels(vol, pose, intr, steps: int, depth_min: float = 0.1,
+                         depth_max: float = 6.0) -> tuple[int, float]:
+    """Distinct voxels the raycast's march reads, each ray stopped at its first
+    crossing (the march of ``kernels/raycast.py::raycast_plain``, its indices
+    kept), and the mean steps a ray marches: what ``csrc/raycast.cu`` has to
+    read of the volume."""
+    from elasticreconstruction_tpu_torch.core import camera as cam
+    from elasticreconstruction_tpu_torch.core import se3
+    from elasticreconstruction_tpu_torch.core.types import f32_reciprocal, fma
+    from elasticreconstruction_tpu_torch.kernels.tsdf import _nearest, make_sampling_volume
+
+    dev = vol.tsdf.device
+    dirs = se3.rotate(pose, cam.ray_directions(intr, device=dev).reshape(-1, 3)).unbind(-1)
+    origin = [pose[k, 3] for k in range(3)]
+    dz = np.float32((depth_max - depth_min) / steps)
+    sval = make_sampling_volume(vol)
+    inv = f32_reciprocal(vol.voxel_size)
+    _, ny, nz = vol.shape
+    n = dirs[0].numel()
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    prev_val = torch.zeros(n, device=dev)
+    prev_valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    seen, marched = [], torch.zeros((), dtype=torch.int64, device=dev)
+    for step in range(steps):
+        z = float(np.float32(depth_min) + (np.float32(step) + np.float32(1.0)) * dz)
+        p = [fma(d, z, o) for o, d in zip(origin, dirs)]
+        ic = [torch.clip(torch.round((c - o) * inv).to(torch.int64), 0, m - 1)
+              for c, o, m in zip(p, vol.origin, vol.shape)]
+        seen.append(((ic[0] * ny + ic[1]) * nz + ic[2])[active])
+        marched += active.sum()
+        val, valid = _nearest(sval, vol.origin, vol.voxel_size, p)
+        active &= ~(prev_valid & valid & (prev_val > 0) & (val <= 0))
+        prev_val, prev_valid = val, valid
+    return int(torch.unique(torch.cat(seen)).numel()), marched.item() / n
+
+
 def bench_kernels(peaks: dict, want=None, device="cuda") -> list[dict]:
     """Time the port's hot kernels at production shapes and score each with :func:`_sol`.
 
@@ -372,36 +408,30 @@ def bench_kernels(peaks: dict, want=None, device="cuda") -> list[dict]:
                 del vol
 
     if "raycast" in want:
-        # The march reads one nearest voxel per step; the refinement adds 5
-        # trilinear samples (40 gathers) and the normal 6 (48). Time must scale
-        # with the step count: a 192/96-step ratio far from the model's marks
-        # both entries suspect.
+        # One launch of csrc/raycast.cu: a ray a thread, stopped at its first
+        # crossing, each step a read that waits on the one before. Its bytes
+        # bound counts the distinct voxels the march reads (tsdf and weight),
+        # the ray directions and the outputs; the chain of dependent reads,
+        # which no measured peak models, keeps it far above that bound.
         vol = _tsdf.fuse(_tsdf.make_volume((256, 256, 256), 0.012, (-1.5, -1.5, 0.3), device=dev),
                          depth, pose, intr)
         nray = intr.width * intr.height
-        ray_entries = {}
         for steps in (96, 192):
             _progress(f"kernel: raycast[{steps}steps]")
             dt = event_ms(lambda steps=steps: _raycast.raycast(vol, pose, intr, num_steps=steps), reps=4, warmup=1)
-            ray_entries[steps] = _sol({
+            voxels, marched = raycast_march_voxels(vol, pose, intr, steps)
+            nbytes = 8 * voxels + 37 * nray
+            entries.append({
                 "kernel": f"raycast.raycast[{steps}steps]",
                 "shape": f"640x480 rays x {steps} steps, 256^3 vol",
                 "time_ms": round(dt, 4),
                 "mrays_per_s": round(nray / (dt * 1e-3) / 1e6, 2),
-                "model": {
-                    "fp32_ops": nray * (steps * 12 + 88 * 8),  # march step + refine/normal epilogues (estimate)
-                    "gathers_hbm": nray * (steps + 88),  # 1 per step + 40 refine + 48 normal (64 MB volume)
-                },
-                "model_note": "gather-dominated; 1 random 32-bit load per march step",
-            }, peaks)
-        ratio = ray_entries[192]["time_ms"] / max(ray_entries[96]["time_ms"], 1e-9)
-        model_ratio = (192 + 88) / (96 + 88)
-        if not (0.6 * model_ratio <= ratio <= 1.6 * model_ratio):
-            for e in ray_entries.values():
-                e["suspect"] = True
-                e["suspect_note"] = (f"192/96-step time ratio {ratio:.2f} vs model {model_ratio:.2f}: "
-                                     "march not executing per step; timing invalid")
-        entries.extend(ray_entries.values())
+                "steps_marched_mean": round(marched, 2),
+                "bytes": nbytes,
+                "bytes_bound_ms": round(nbytes / (peaks["peak_bw_gbs"] * 1e9) * 1e3, 4),
+                "model": {},
+                "note": "latency-bound: one chain of dependent reads a ray; no analytic roofline",
+            })
         del vol
 
     if "fpfh" in want:
