@@ -214,227 +214,254 @@ def run_registration(
     and loop.info are written empty so downstream stages run unchanged.
 
     Every batch is queued on the device and results are pulled to the host
-    once at the end of the stage.
+    once at the end of the stage. The returned stats hold, besides the
+    logged numbers, ``candidates``: the pairs sent through the registrar, in
+    the order they were batched.
+
+    Under a profiler the stage is span ``registration.stage`` (counters
+    ``fragments``, ``pairs``: registrar attempts, ``odometry_edges``) around
+    ``registration.load``, ``registration.prep``, ``registration.odometry_edges``,
+    ``registration.gate`` (with ``registration.retrieval``, counter
+    ``content_pairs``), ``registration.dispatch`` (the ``registration.batch``
+    spans), ``registration.drain`` and ``registration.write``.
     """
-    dev = resolve_device(device)
-    out = cfg.p_registration()
-    out.mkdir(parents=True, exist_ok=True)
-    clouds = load_fragment_clouds(cfg)
+    with trace.span("registration.stage"):
+        dev = resolve_device(device)
+        out = cfg.p_registration()
+        out.mkdir(parents=True, exist_ok=True)
+        with trace.span("registration.load"):
+            clouds = load_fragment_clouds(cfg)
+            nf = len(clouds)
+            bases = io_logfmt.read_log(cfg.p_fragments() / "fragments.log").matrices().astype(np.float32)
+            health = load_fragment_health(cfg, nf)
+            all_clouds = PointCloud(*(np.stack(xs) for xs in zip(*clouds)))
+        trace.count("fragments", nf)
+        trace.count("odometry_edges", nf - 1)
+        t0 = time.time()
+
+        rcfg = cfg.registration
+        prepped = prep_fragments_batch(all_clouds, rcfg, device=dev)
+
+        with trace.span("registration.odometry_edges"):
+            # Odometry edges: the chained base poses give the init, but raw odometry
+            # carries the within-fragment drift — refine every consecutive pair with
+            # one batched point-to-plane ICP over the prepped fine clouds.
+            idx_i = torch.arange(nf - 1, device=dev)
+            idx_j = idx_i + 1
+            init_T = torch.as_tensor(
+                np.stack([np.linalg.inv(bases[f]) @ bases[f + 1] for f in range(nf - 1)]).astype(np.float32)
+                if nf > 1 else np.zeros((0, 4, 4), np.float32),
+                device=dev,
+            )
+            ir, infos_ref = refine_edges_batch(prepped, idx_i, idx_j, init_T, rcfg)
+            # Trust region: odometry is locally reliable; reject refinements that
+            # slide far from the init (planar overlaps are point-to-plane degenerate
+            # and can drift unboundedly) or that matched poorly.
+            delta = se3.log(ir.transform @ torch.linalg.inv(init_T))
+            trust = (
+                (torch.linalg.norm(delta[:, :3], dim=-1) < 0.25)
+                & (torch.linalg.norm(delta[:, 3:], dim=-1) < 0.25)
+                & (ir.fitness > 0.2)
+            )
+            That_all = torch.where(trust[:, None, None], ir.transform, init_T)
+            infos_init = edge_information_batch(prepped, idx_i, idx_j, init_T, rcfg)
+            trust_ok = trust.cpu().numpy()
+            odo_T = That_all.cpu().numpy().astype(np.float64)
+            odo_info = torch.where(trust[:, None, None], infos_ref, infos_init).cpu().numpy().astype(np.float64)
+            odo_fitness = ir.fitness.cpu().numpy()
+            io_logfmt.write_log(
+                out / "odometry.log",
+                io_logfmt.Trajectory(
+                    [io_logfmt.TrajectoryEntry(f, f + 1, nf, odo_T[f]) for f in range(nf - 1)]
+                ),
+            )
+            io_logfmt.write_info(
+                out / "odometry.info",
+                io_logfmt.InfoFile([io_logfmt.InfoEntry(f, f + 1, nf, odo_info[f]) for f in range(nf - 1)]),
+            )
+
+            # Suspect odometry edges: an edge touching a fragment whose tracking
+            # health tripped, or whose chain refinement was rejected or poorly
+            # matched, cannot be hard-trusted. They are (a) recorded for the pose
+            # graph to make line-process-eligible, and (b) re-registered from scratch
+            # (FPFH+RANSAC, no odometry init) as additional loop candidates so the
+            # graph has an independent measurement.
+            suspect = [
+                f
+                for f in range(nf - 1)
+                if health[f].get("suspect", False)
+                or health[f + 1].get("suspect", False)
+                or not trust_ok[f]
+                or odo_fitness[f] < rcfg.min_fitness
+            ]
+            with open(out / "odometry_suspect.txt", "w") as sf:
+                for f in suspect:
+                    sf.write(f"{f} {f + 1}\n")
+
+        with trace.span("registration.gate"):
+            pairs, gate_stats = _loop_candidates(cfg, clouds, bases, suspect, prepped, all_pairs, gate_poses)
+        pairs += [(f, f + 1) for f in suspect]
+        trace.count("pairs", len(pairs))
+        t_prep = time.time() - t0  # prep + odometry refine
+        batch_results = []
+        B = cfg.registration_batch
+        t_first = None  # set after the first batch call returns
+        n_first = 0
+        t_disp0 = time.time()
+        with trace.span("registration.dispatch"):
+            for s in range(0, len(pairs), B):
+                chunk = pairs[s : s + B]
+                res = register_prepped_batch(
+                    prepped,
+                    [i for i, _ in chunk],
+                    [j for _, j in chunk],
+                    _batch_generator(cfg.seed, s),
+                    rcfg,
+                    device=dev,
+                )
+                batch_results.append(res)  # stays on the device
+                if t_first is None:
+                    t_first, n_first = time.time(), len(chunk)
+        t_dispatch = time.time() - t_disp0  # host-side loop (ICP's exit test syncs per step)
+
+        t_drain0 = time.time()
+        with trace.span("registration.drain"):
+            results = []
+            for res in batch_results:
+                host = res._make(x.cpu().numpy() for x in res)  # single drain at stage end
+                for b in range(len(host.i)):
+                    results.append(host._make(x[b] for x in host))
+        t_drain = time.time() - t_drain0  # device backlog + readback
+
+        with trace.span("registration.write"):
+            accepted_all = [r for r in results if bool(r.success)]
+            # Dedup duplicate attempts (content retries above): best fitness wins.
+            best: dict = {}
+            for r in accepted_all:
+                k = (int(r.i), int(r.j))
+                if k not in best or float(r.fitness) > float(best[k].fitness):
+                    best[k] = r
+            accepted = [best[k] for k in sorted(best)]
+            io_logfmt.write_log(
+                out / "loop.log",
+                io_logfmt.Trajectory(
+                    [
+                        io_logfmt.TrajectoryEntry(int(r.i), int(r.j), nf, r.transform.astype(np.float64))
+                        for r in accepted
+                    ]
+                ),
+            )
+            io_logfmt.write_info(
+                out / "loop.info",
+                io_logfmt.InfoFile(
+                    [
+                        io_logfmt.InfoEntry(int(r.i), int(r.j), nf, r.information.astype(np.float64))
+                        for r in accepted
+                    ]
+                ),
+            )
+        t_total = time.time() - t0
+        stats = dict(
+            pairs=len(pairs),
+            accepted=len(accepted),
+            odometry_edges=nf - 1,
+            suspect_odometry_edges=len(suspect),
+            seconds=round(t_total, 2),
+            prep_seconds=round(t_prep, 2),
+            # Stage-rate attribution: dispatch = the host loop over batches; drain
+            # = what the device still had queued + result readback.
+            dispatch_seconds=round(t_dispatch, 2),
+            drain_seconds=round(t_drain, 2),
+            io_seconds=round(t_total - t_prep - t_dispatch - t_drain, 2),
+            pairs_per_second=round((len(pairs) + nf - 1) / max(t_total, 1e-9), 3),
+            # Rate of the pair loop alone, timed from after the first batch call
+            # returns (its one-time set-up excluded, its pairs too).
+            pair_loop_pairs_per_second=(
+                round((len(pairs) - n_first) / max(t_total - (t_first - t0), 1e-9), 3)
+                if t_first is not None and len(pairs) > n_first
+                else None
+            ),
+            **gate_stats,
+        )
+        _log("registration", "done", **stats)
+        return {**stats, "candidates": pairs}
+
+
+def _loop_candidates(cfg, clouds, bases, suspect, prepped, all_pairs, gate_poses) -> tuple[list, dict]:
+    """The loop candidates of :func:`run_registration` (all non-adjacent pairs
+    under the configured gate) and the gate's stats; the suspect consecutive
+    pairs are the caller's to add."""
     nf = len(clouds)
-    bases = io_logfmt.read_log(cfg.p_fragments() / "fragments.log").matrices().astype(np.float32)
-    health = load_fragment_health(cfg, nf)
-    t0 = time.time()
-
-    rcfg = cfg.registration
-    all_clouds = PointCloud(*(np.stack(xs) for xs in zip(*clouds)))
-    prepped = prep_fragments_batch(all_clouds, rcfg, device=dev)
-
-    # Odometry edges: the chained base poses give the init, but raw odometry
-    # carries the within-fragment drift — refine every consecutive pair with
-    # one batched point-to-plane ICP over the prepped fine clouds.
-    idx_i = torch.arange(nf - 1, device=dev)
-    idx_j = idx_i + 1
-    init_T = torch.as_tensor(
-        np.stack([np.linalg.inv(bases[f]) @ bases[f + 1] for f in range(nf - 1)]).astype(np.float32)
-        if nf > 1 else np.zeros((0, 4, 4), np.float32),
-        device=dev,
-    )
-    ir, infos_ref = refine_edges_batch(prepped, idx_i, idx_j, init_T, rcfg)
-    # Trust region: odometry is locally reliable; reject refinements that
-    # slide far from the init (planar overlaps are point-to-plane degenerate
-    # and can drift unboundedly) or that matched poorly.
-    delta = se3.log(ir.transform @ torch.linalg.inv(init_T))
-    trust = (
-        (torch.linalg.norm(delta[:, :3], dim=-1) < 0.25)
-        & (torch.linalg.norm(delta[:, 3:], dim=-1) < 0.25)
-        & (ir.fitness > 0.2)
-    )
-    That_all = torch.where(trust[:, None, None], ir.transform, init_T)
-    infos_init = edge_information_batch(prepped, idx_i, idx_j, init_T, rcfg)
-    trust_ok = trust.cpu().numpy()
-    odo_T = That_all.cpu().numpy().astype(np.float64)
-    odo_info = torch.where(trust[:, None, None], infos_ref, infos_init).cpu().numpy().astype(np.float64)
-    odo_fitness = ir.fitness.cpu().numpy()
-    io_logfmt.write_log(
-        out / "odometry.log",
-        io_logfmt.Trajectory(
-            [io_logfmt.TrajectoryEntry(f, f + 1, nf, odo_T[f]) for f in range(nf - 1)]
-        ),
-    )
-    io_logfmt.write_info(
-        out / "odometry.info",
-        io_logfmt.InfoFile([io_logfmt.InfoEntry(f, f + 1, nf, odo_info[f]) for f in range(nf - 1)]),
-    )
-
-    # Suspect odometry edges: an edge touching a fragment whose tracking
-    # health tripped, or whose chain refinement was rejected or poorly
-    # matched, cannot be hard-trusted. They are (a) recorded for the pose
-    # graph to make line-process-eligible, and (b) re-registered from scratch
-    # (FPFH+RANSAC, no odometry init) as additional loop candidates so the
-    # graph has an independent measurement.
-    suspect = [
-        f
-        for f in range(nf - 1)
-        if health[f].get("suspect", False)
-        or health[f + 1].get("suspect", False)
-        or not trust_ok[f]
-        or odo_fitness[f] < rcfg.min_fitness
-    ]
-    with open(out / "odometry_suspect.txt", "w") as sf:
-        for f in suspect:
-            sf.write(f"{f} {f + 1}\n")
-
-    # Loop candidates: all non-adjacent pairs (+ suspect consecutive pairs),
-    # batched through the registrar. Each fragment is prepped exactly once;
-    # the pair loop only gathers prepped rows.
     pairs = [(i, j) for i in range(nf) for j in range(i + 2, nf)] if all_pairs else []
-    gate_stats: dict = {}
-    if all_pairs and (np.isfinite(cfg.loop_candidate_radius) or cfg.loop_gating == "drift"):
-        # Fragment centroids under ``gate_poses`` (default: the odometry-chain
-        # bases) — the init placement both gates reason about.
-        gp = bases if gate_poses is None else np.asarray(gate_poses, np.float32)
+    # ``gate_poses`` (default: the odometry-chain bases): the init placement both gates reason about.
+    gp = bases if gate_poses is None else np.asarray(gate_poses, np.float32)
+    if all_pairs and np.isfinite(cfg.loop_candidate_radius):
+        # Manual radius gate on fragment centroids, kept as an override of the derived gate below.
         cent = np.zeros((nf, 3), np.float32)
         for f, c in enumerate(clouds):
             local = c.points[c.mask].mean(0) if c.mask.any() else np.zeros(3)
             cent[f] = gp[f, :3, :3] @ local + gp[f, :3, 3]
-    if all_pairs and np.isfinite(cfg.loop_candidate_radius):
-        # Manual radius gate, kept as an override of the derived gate below.
-        pairs = [
+        return [
             (i, j) for i, j in pairs if np.linalg.norm(cent[i] - cent[j]) < cfg.loop_candidate_radius
-        ]
-    elif all_pairs and cfg.loop_gating == "drift" and nf > 2:
-        # Derived gate + content retrieval (see PipelineConfig.loop_gating).
-        sus_edge = np.zeros(nf - 1, bool)
-        for f in suspect:
-            sus_edge[f] = True
-        budget = np.where(sus_edge, cfg.drift_suspect, cfg.drift_per_fragment)
-        cum_budget = np.concatenate([[0.0], np.cumsum(budget)])
-        cum_sus = np.concatenate([[0], np.cumsum(sus_edge.astype(int))])
-        # Overlap test: posed bounding boxes must intersect within the path's
-        # drift budget + a fixed slack. AABB intersection is the overlap
-        # criterion itself (centroid distance is too strict for two views of
-        # one wall from different ranges) and still cuts cross-room aliased
-        # pairs whose boxes hug opposite walls.
-        lo_b = np.zeros((nf, 3), np.float32)
-        hi_b = np.zeros((nf, 3), np.float32)
-        for f, c in enumerate(clouds):
-            w = (
-                c.points[c.mask] @ gp[f, :3, :3].T + gp[f, :3, 3]
-                if c.mask.any()
-                else np.zeros((1, 3), np.float32)
-            )
-            lo_b[f] = w.min(0)
-            hi_b[f] = w.max(0)
-        admitted, suspect_path = [], set()
-        for i, j in pairs:
-            if j - i <= cfg.gate_near_diagonal:
-                admitted.append((i, j))  # temporally local: always register
-            elif cum_sus[j] - cum_sus[i] == 0:
-                margin = cfg.gate_margin + (cum_budget[j] - cum_budget[i])
-                if np.all(lo_b[i] - margin <= hi_b[j]) and np.all(lo_b[j] - margin <= hi_b[i]):
-                    admitted.append((i, j))
-            else:
-                suspect_path.add((i, j))
-        content: set = set()
-        if suspect_path:
+        ], {}
+    if not (all_pairs and cfg.loop_gating == "drift" and nf > 2):
+        return pairs, {}
+    # Derived gate + content retrieval (see PipelineConfig.loop_gating).
+    sus_edge = np.zeros(nf - 1, bool)
+    for f in suspect:
+        sus_edge[f] = True
+    budget = np.where(sus_edge, cfg.drift_suspect, cfg.drift_per_fragment)
+    cum_budget = np.concatenate([[0.0], np.cumsum(budget)])
+    cum_sus = np.concatenate([[0], np.cumsum(sus_edge.astype(int))])
+    # Overlap test: posed bounding boxes must intersect within the path's
+    # drift budget + a fixed slack. AABB intersection is the overlap
+    # criterion itself (centroid distance is too strict for two views of
+    # one wall from different ranges) and still cuts cross-room aliased
+    # pairs whose boxes hug opposite walls.
+    lo_b = np.zeros((nf, 3), np.float32)
+    hi_b = np.zeros((nf, 3), np.float32)
+    for f, c in enumerate(clouds):
+        w = (
+            c.points[c.mask] @ gp[f, :3, :3].T + gp[f, :3, 3]
+            if c.mask.any()
+            else np.zeros((1, 3), np.float32)
+        )
+        lo_b[f] = w.min(0)
+        hi_b[f] = w.max(0)
+    admitted, suspect_path = [], set()
+    for i, j in pairs:
+        if j - i <= cfg.gate_near_diagonal:
+            admitted.append((i, j))  # temporally local: always register
+        elif cum_sus[j] - cum_sus[i] == 0:
+            margin = cfg.gate_margin + (cum_budget[j] - cum_budget[i])
+            if np.all(lo_b[i] - margin <= hi_b[j]) and np.all(lo_b[j] - margin <= hi_b[i]):
+                admitted.append((i, j))
+        else:
+            suspect_path.add((i, j))
+    content: set = set()
+    if suspect_path:
+        with trace.span("registration.retrieval"):
             sig = fragment_signatures(prepped.features, prepped.coarse.mask).cpu().numpy()
             content = mutual_topk_pairs(
                 signature_distances(sig), cfg.retrieval_topk, candidates=suspect_path
             )
-        gate_stats = dict(
-            gate_margin=cfg.gate_margin,
-            gate_admitted=len(admitted),
-            gate_suspect_path=len(suspect_path),
-            gate_content_admitted=len(content),
-        )
-        # Content-retrieved candidates get a second registration attempt with
-        # independent RANSAC draws (they land in a different batch, so the
-        # per-batch generator salts them): they are few, high-value (often the
-        # only loop closure across a suspect stretch) and typically of
-        # marginal overlap. Accepted duplicates are deduped (best fitness
-        # wins) before they are written.
-        pairs = admitted + sorted(content) + sorted(content)
-    pairs += [(f, f + 1) for f in suspect]
-    t_prep = time.time() - t0  # prep + odometry refine
-    batch_results = []
-    B = cfg.registration_batch
-    t_first = None  # set after the first batch call returns
-    n_first = 0
-    t_disp0 = time.time()
-    for s in range(0, len(pairs), B):
-        chunk = pairs[s : s + B]
-        res = register_prepped_batch(
-            prepped,
-            [i for i, _ in chunk],
-            [j for _, j in chunk],
-            _batch_generator(cfg.seed, s),
-            rcfg,
-            device=dev,
-        )
-        batch_results.append(res)  # stays on the device
-        if t_first is None:
-            t_first, n_first = time.time(), len(chunk)
-    t_dispatch = time.time() - t_disp0  # host-side loop (ICP's exit test syncs per step)
-
-    t_drain0 = time.time()
-    results = []
-    for res in batch_results:
-        host = res._make(x.cpu().numpy() for x in res)  # single drain at stage end
-        for b in range(len(host.i)):
-            results.append(host._make(x[b] for x in host))
-    t_drain = time.time() - t_drain0  # device backlog + readback
-
-    accepted_all = [r for r in results if bool(r.success)]
-    # Dedup duplicate attempts (content retries above): best fitness wins.
-    best: dict = {}
-    for r in accepted_all:
-        k = (int(r.i), int(r.j))
-        if k not in best or float(r.fitness) > float(best[k].fitness):
-            best[k] = r
-    accepted = [best[k] for k in sorted(best)]
-    io_logfmt.write_log(
-        out / "loop.log",
-        io_logfmt.Trajectory(
-            [
-                io_logfmt.TrajectoryEntry(int(r.i), int(r.j), nf, r.transform.astype(np.float64))
-                for r in accepted
-            ]
-        ),
+            trace.count("content_pairs", len(content))
+    # Content-retrieved candidates get a second registration attempt: they are
+    # few, high-value (often the only loop closure across a suspect stretch)
+    # and typically of marginal overlap. The second copy draws other RANSAC
+    # hypotheses because every lane of a batch draws its own row of the
+    # batch's draws (``registration/ransac.py::draw_hypotheses``), whether the
+    # two copies share a batch or not (across batches the per-batch generator
+    # differs too). Accepted duplicates are deduped (best fitness wins) before
+    # they are written; ``content_repeats`` counts the second attempts, which
+    # ``pairs`` counts among the attempts.
+    return admitted + sorted(content) + sorted(content), dict(
+        gate_margin=cfg.gate_margin,
+        gate_admitted=len(admitted),
+        gate_suspect_path=len(suspect_path),
+        gate_content_admitted=len(content),
+        content_repeats=len(content),
     )
-    io_logfmt.write_info(
-        out / "loop.info",
-        io_logfmt.InfoFile(
-            [
-                io_logfmt.InfoEntry(int(r.i), int(r.j), nf, r.information.astype(np.float64))
-                for r in accepted
-            ]
-        ),
-    )
-    t_total = time.time() - t0
-    stats = dict(
-        pairs=len(pairs),
-        accepted=len(accepted),
-        odometry_edges=nf - 1,
-        suspect_odometry_edges=len(suspect),
-        seconds=round(t_total, 2),
-        prep_seconds=round(t_prep, 2),
-        # Stage-rate attribution: dispatch = the host loop over batches; drain
-        # = what the device still had queued + result readback.
-        dispatch_seconds=round(t_dispatch, 2),
-        drain_seconds=round(t_drain, 2),
-        io_seconds=round(t_total - t_prep - t_dispatch - t_drain, 2),
-        pairs_per_second=round((len(pairs) + nf - 1) / max(t_total, 1e-9), 3),
-        # Rate of the pair loop alone, timed from after the first batch call
-        # returns (its one-time set-up excluded, its pairs too).
-        pair_loop_pairs_per_second=(
-            round((len(pairs) - n_first) / max(t_total - (t_first - t0), 1e-9), 3)
-            if t_first is not None and len(pairs) > n_first
-            else None
-        ),
-        **gate_stats,
-    )
-    _log("registration", "done", **stats)
-    return stats
 
 
 # ----------------------------------------------------------------- posegraph

@@ -172,11 +172,14 @@ def test_loop_edges_match_jax(runs):
 
 def test_registration_stats_record(runs):
     j_stats, t_stats = runs["j_stats"], runs["t_stats"]
-    assert set(t_stats) == set(j_stats) == STATS_KEYS
+    # The port's stats add the second attempts of content-retrieved pairs and the pairs it sent.
+    assert set(j_stats) == STATS_KEYS and set(t_stats) == STATS_KEYS | {"content_repeats", "candidates"}
     for key in ("pairs", "accepted", "odometry_edges", "suspect_odometry_edges", "gate_margin",
                 "gate_admitted", "gate_suspect_path", "gate_content_admitted"):
         assert t_stats[key] == j_stats[key], key
     assert t_stats["pairs"] == 6 and t_stats["odometry_edges"] == NUM - 1
+    assert t_stats["content_repeats"] == j_stats["gate_content_admitted"]
+    assert len(t_stats["candidates"]) == t_stats["pairs"]
 
 
 def test_posegraph_matches_jax_on_the_same_registration(runs):
