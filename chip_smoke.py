@@ -27,7 +27,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    normals) on the benchmark configuration's 512^3 volume fused from four
    orbit frames, at 640x480 and 295 steps from a fused pose and a moved one,
    and at ``raycast_scale=2``; its bound counts the distinct voxels its march
-   reads.
+   reads. The Gauss-Newton step kernel (``check_gn_step``) is held at every
+   step of the three levels, on that volume fused from four frames with the
+   fifth tracked from a moved seed, to the plain step from the same pose
+   within the tolerances of ``tests/test_torch_gn_kernel.py``; one
+   ``track_frame`` must launch it once a step. Its ms a step and a frame,
+   the plain levels' ms and its bytes bound are printed.
 4. Registration path at full width: 6 fragments of 20 000 points (the registration
    benchmark's scene), ``prep_fragments_batch`` and ``register_prepped_batch``
    with ``RegistrationConfig()`` defaults over all 15 pairs x4 in 4 batches of
@@ -66,7 +71,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    0.5, more than 20 000 points per cloud, the clouds on the scene surface
    (mean |SDF| under 3 cm), both odometry edges within 2 cm / 0.02 rad at the
    fragment's centroid, ``nearest_batch`` launched by ``register``, and the
-   raycast kernel launched once for every tracked frame. Printed:
+   raycast kernel launched once and the Gauss-Newton step kernel once a step
+   (19 with the full preset) for every tracked frame. Printed:
    render and verb seconds, frames/s, per-frame ms of fuse, raycast, the
    Gauss-Newton levels of ``track_frame`` and surface extraction (device time
    by ``cuda_ms``, wall time, profiled device-busy time), host synchronisations
@@ -230,6 +236,13 @@ RAYCAST_VOLUME = (512, 512, 512)
 RAYCAST_VOXEL = 0.0078125
 RAYCAST_STEPS = 295
 RAYCAST_DEPTH = (0.1, 6.0)
+# The Gauss-Newton step kernel against the plain step, on the raycast's volume:
+# the tolerances of tests/test_torch_gn_kernel.py (why each: there), the seed's
+# move off the tracked frame's pose, and the bytes a pixel a step of the bound.
+GN_TOLERANCES = {"H": 2e-5, "g": 2e-5, "support": 1e-4, "sum_r2": 1e-4, "step_pose": 2e-6}
+GN_LEVEL_POSE_ATOL = 1e-5
+GN_SEED_MOVE = [0.01, -0.006, 0.008, 0.004, -0.005, 0.003]
+GN_BYTES_PER_PIXEL = 4 + 25
 # Elastic path: milestone config 4 (milestones.py:315-324) on the fragments
 # path's directory, cut as config 3 is (3 fragments, full preset), in each mode.
 ELASTIC_MODES = ("rigid", "slac", "nonrigid")
@@ -665,10 +678,11 @@ def check_nearest_at_harvest_shape(rng, dev, capacity: int = HARVEST_CAPACITY, p
             "splits": geo.splits, "scratch_mb": 4 * floats / 1e6, "valid_ref_share": valid_share}
 
 
-def raycast_volume(dev, frames: int = 4):
+def raycast_volume(dev, frames: int = 4, fused: int | None = None):
     """The benchmark configuration's 512^3 volume of 7.8125 mm voxels, placed as
-    ``build_fragment`` places it and fused from ``frames`` frames of the
-    livingroom orbit (2 pi over 2550 frames); and the frames' fragment poses."""
+    ``build_fragment`` places it and fused from the first ``fused`` (default:
+    all) of ``frames`` frames of the livingroom orbit (2 pi over 2550 frames);
+    and the frames' fragment poses and depths."""
     from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
     from elasticreconstruction_tpu_torch.kernels import tsdf
     from elasticreconstruction_tpu_torch.odometry.fragments import FragmentConfig, _volume_origin
@@ -681,9 +695,9 @@ def raycast_volume(dev, frames: int = 4):
     local = np.linalg.inv(world[0].astype(np.float64)) @ world.astype(np.float64)
     poses = torch.from_numpy(local.astype(np.float32)).to(dev)
     vol = tsdf.make_volume(cfg.volume_shape, cfg.voxel_size, _volume_origin(cfg), device=dev)
-    for d, T in zip(depths, poses):
+    for d, T in list(zip(depths, poses))[:fused]:
         vol = tsdf.fuse(vol, d, T, PRIMESENSE, max_weight=64.0, depth_min=0.1, depth_max=6.0)
-    return vol, poses
+    return vol, poses, depths
 
 
 def check_raycast(dev) -> dict:
@@ -699,7 +713,7 @@ def check_raycast(dev) -> dict:
     from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
     from elasticreconstruction_tpu_torch.kernels import raycast as rc
 
-    vol, poses = raycast_volume(dev)
+    vol, poses, _ = raycast_volume(dev)
     moved = se3.exp(torch.tensor([0.02, -0.01, 0.015, 0.01, -0.02, 0.005], device=dev)) @ poses[2]
     kw = dict(depth_min=RAYCAST_DEPTH[0], depth_max=RAYCAST_DEPTH[1], num_steps=RAYCAST_STEPS)
     cases = {"fused_pose": (poses[3], PRIMESENSE), "moved_pose": (moved, PRIMESENSE),
@@ -730,6 +744,86 @@ def check_raycast(dev) -> dict:
     return rec
 
 
+def check_gn_step(dev) -> dict:
+    """The Gauss-Newton step kernel against the plain step at the benchmark
+    configuration's shapes: the fifth orbit frame tracked at 640x480 on all
+    three levels against the 512^3 volume fused from the first four, from a
+    seed moved off its pose. Every step's sums (H, g, support, sum r^2) and
+    new pose against the plain step's from the same pose, within the
+    tolerances of ``tests/test_torch_gn_kernel.py``; every call made twice;
+    the pose after each level against the plain level's. Times: the kernel's
+    ms a step by level and a frame (19 steps), one call of a level's steps,
+    the plain level, and the bytes bound (29 B a pixel a step: the depth and,
+    at most once, the model's vertex, normal and valid flag)."""
+    from elasticreconstruction_tpu_torch.core import se3
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
+    from elasticreconstruction_tpu_torch.core import camera as cam
+    from elasticreconstruction_tpu_torch.kernels import raycast as rc
+    from elasticreconstruction_tpu_torch.kernels.cuda import gn_step
+    from elasticreconstruction_tpu_torch.odometry import kinfu
+
+    vol, poses, depths = raycast_volume(dev, frames=5, fused=4)
+    cfg = kinfu.OdometryConfig(raycast_steps=RAYCAST_STEPS)
+    seed = se3.exp(torch.tensor(GN_SEED_MOVE, device=dev)) @ poses[4]
+    model = rc.raycast(vol, seed, PRIMESENSE, depth_min=cfg.depth_min, depth_max=cfg.depth_max,
+                       num_steps=cfg.raycast_steps)
+    levels = [(depths[4], PRIMESENSE)]
+    for _ in range(cfg.levels - 1):
+        levels.append((kinfu.pyramid_down(levels[-1][0]), levels[-1][1].scaled(0.5)))
+    errors, by_level, T = {}, {}, seed
+    for lvl in range(cfg.levels - 1, -1, -1):
+        depth, intr = levels[lvl]
+        iters = cfg.iterations[lvl]
+        got = twice(f"gn_step level {lvl}", lambda: kinfu._gn_level(depth, intr, model, seed, PRIMESENSE, T, seed,
+                                                                     iters, cfg))
+        want = kinfu._gn_level_plain(depth, intr, model, seed, PRIMESENSE, T, seed, iters, cfg)
+        errors[f"level_{lvl}_pose"] = (got[0] - want[0]).abs().max().item()
+        verts = cam.unproject(depth, intr).reshape(-1, 3)
+        for _ in range(iters):
+            st = gn_step.unpack(twice("gn_step", lambda: (gn_step.gn_step_cuda(depth, intr, model, seed, PRIMESENSE,
+                                                                                T, seed, cfg),))[0])
+            H, g, wf, r = kinfu.gn_normal_equations(verts, (depth > 0).reshape(-1), model, seed, PRIMESENSE, T, cfg)
+            H, g, support, r2 = H.cpu().double(), g.cpu().double(), wf.sum().item(), (wf * r * r).sum().item()
+            T_plain = kinfu._gn_level_plain(depth, intr, model, seed, PRIMESENSE, T, seed, 1, cfg)[0].cpu()
+            scale = max(H.abs().max().item(), 1e-30)
+            step = {"H": (st["H"].double() - H).abs().max().item() / scale,
+                    "g": (st["g"].double() - g).abs().max().item() / max((scale * r2) ** 0.5, 1e-30),
+                    "support": abs(st["support"].item() - support) / max(support, 1.0),
+                    "sum_r2": abs(st["sum_r2"].item() - r2) / max(r2, 1e-30),
+                    "step_pose": (st["pose"] - T_plain).abs().max().item()}
+            for k, v in step.items():
+                errors[k] = max(errors.get(k, 0.0), v)
+            T = st["pose"].to(dev)
+        ms = cuda_ms(lambda: kinfu._gn_level(depth, intr, model, seed, PRIMESENSE, seed, seed, iters, cfg))
+        by_level[lvl] = {"shape": [intr.height, intr.width], "steps": iters, "ms_per_step": ms / iters,
+                         "call_ms": call_ms(lambda: kinfu._gn_level(depth, intr, model, seed, PRIMESENSE, seed,
+                                                                    seed, iters, cfg)),
+                         "plain_ms": call_ms(lambda: kinfu._gn_level_plain(depth, intr, model, seed, PRIMESENSE,
+                                                                           seed, seed, iters, cfg), reps=3, warmup=1),
+                         "bytes_per_step": GN_BYTES_PER_PIXEL * intr.height * intr.width}
+    faults = [f"{k} {errors[k]:.3g} over {lim}" for k, lim in GN_TOLERANCES.items() if not errors[k] <= lim]
+    faults += [f"level {lvl} pose {errors[f'level_{lvl}_pose']:.3g} over {GN_LEVEL_POSE_ATOL}"
+               for lvl in by_level if not errors[f"level_{lvl}_pose"] <= GN_LEVEL_POSE_ATOL]
+    if faults:
+        fail("gn_step against the plain step: " + "; ".join(faults))
+    before = gn_step.launches
+    kinfu.track_frame(vol, depths[4], seed, PRIMESENSE, cfg)
+    launches = gn_step.launches - before
+    if launches != sum(cfg.iterations[:cfg.levels]):
+        fail(f"gn_step: {launches} launches in one track_frame")
+    frame_ms = sum(b["ms_per_step"] * b["steps"] for b in by_level.values())
+    frame_bytes = sum(b["bytes_per_step"] * b["steps"] for b in by_level.values())
+    fine = by_level[0]
+    bnd, by = bound_ms(0.0, fine["bytes_per_step"])
+    rec = {"ms": fine["ms_per_step"], "plain_ms": fine["plain_ms"] / fine["steps"], "library_ms": None,
+           "bound_ms": bnd, "bound_by": by, "max_abs_err": errors["step_pose"], "shape": fine["shape"],
+           "frame_ms": frame_ms, "frame_bound_ms": bound_ms(0.0, frame_bytes)[0],
+           "frame_plain_ms": sum(b["plain_ms"] for b in by_level.values()), "launches_per_track_frame": launches,
+           "errors": errors, "by_level": by_level}
+    print(json.dumps({"gn_step": rec}))
+    return rec
+
+
 def phase_kernel_parity() -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -751,15 +845,16 @@ def phase_kernel_parity() -> dict:
     return {"nearest_batch": dict(nn_by_shape[0], by_shape=nn_by_shape),
             "normal_eqs_batch": dict(icp_by_shape[0], by_shape=icp_by_shape),
             "raycast": check_raycast(dev),
+            "gn_step": check_gn_step(dev),
             **check_calib_kernels()}
 
 
 def launch_counts() -> dict:
-    from elasticreconstruction_tpu_torch.kernels.cuda import calib, icp_step, nn
+    from elasticreconstruction_tpu_torch.kernels.cuda import calib, gn_step, icp_step, nn
     from elasticreconstruction_tpu_torch.kernels.cuda import raycast as rc_cuda
 
     return {"nearest_batch": nn.launches, "normal_eqs_batch": icp_step.launches, "raycast": rc_cuda.launches,
-            **calib.launches}
+            "gn_step": gn_step.launches, **calib.launches}
 
 
 def launches_by_shape() -> dict:
@@ -771,12 +866,13 @@ def launches_by_shape() -> dict:
 
 
 def reset_launch_counts() -> None:
-    from elasticreconstruction_tpu_torch.kernels.cuda import calib, icp_step, nn
+    from elasticreconstruction_tpu_torch.kernels.cuda import calib, gn_step, icp_step, nn
     from elasticreconstruction_tpu_torch.kernels.cuda import raycast as rc_cuda
 
     nn.launches = 0
     icp_step.launches = 0
     rc_cuda.launches = 0
+    gn_step.launches = 0
     nn.launches_by_shape.clear()
     icp_step.launches_by_shape.clear()
     for name in calib.launches:
@@ -1281,10 +1377,15 @@ def phase_fragments(tmp: str, seed: int = 0) -> dict:
     rec = fragments_path(dev, tmp, PRIMESENSE, FRAG_FRAMES, seed=seed)
     rec["launches"] = launch_counts()
     print(json.dumps({"fragments_path_launches_by_shape": launches_by_shape()}))
-    require_launched("fragments", rec["launches"], ["nearest_batch", "raycast"])
+    require_launched("fragments", rec["launches"], ["nearest_batch", "raycast", "gn_step"])
     if rec["launches"]["raycast"] != rec["tracked_frames"]:
         fail(f"fragments path: {rec['launches']['raycast']} raycast launches for {rec['tracked_frames']} "
              "tracked frames")
+    ocfg = run.config_from_args(run.build_parser().parse_args(["fragments"])).fragment.odometry
+    steps = sum(ocfg.iterations[:ocfg.levels])
+    if rec["launches"]["gn_step"] != rec["tracked_frames"] * steps:
+        fail(f"fragments path: {rec['launches']['gn_step']} gn_step launches for {rec['tracked_frames']} "
+             f"tracked frames of {steps} steps")
     phase_done("fragments path: render, fragments, register and posegraph verbs")
 
     # Per-frame costs at full width: frame 1 against the model of frame 0,
@@ -2530,6 +2631,10 @@ KERNELS = {
     "raycast": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/raycast.cu",
         "replaces": "none: elasticreconstruction_tpu/kernels/raycast.py::raycast is plain jnp",
+    },
+    "gn_step": {
+        "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/gn_step.cu",
+        "replaces": "none: elasticreconstruction_tpu/odometry/kinfu.py::_gn_level is plain jnp",
     },
     "fma_chain": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/calib.cu",

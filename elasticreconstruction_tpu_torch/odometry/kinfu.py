@@ -3,12 +3,16 @@
 Counterpart of ``elasticreconstruction_tpu/odometry/kinfu.py``: the per-frame
 hot loop of fragment odometry (valid-aware depth pyramid, projective data
 association against the raycast model, point-to-plane Gauss-Newton per
-pyramid level with a spectral-floor motion prior). Each Gauss-Newton
-iteration is a pass of plain PyTorch ops over the image plus two 3x3
-eigendecompositions (one batched ``eigh``) and one 6x6 solve; nothing in it
-reads a value back to the host in the port's own code. ``torch.linalg.eigh``
-checks its error flag on the host on the card (one synchronisation per
-iteration, counted in PERF.md); the solve uses ``solve_ex`` without the check.
+pyramid level with a spectral-floor motion prior).
+
+Which path runs where: :func:`_gn_level` runs :func:`_gn_level_plain` for CPU
+tensors (a pass of plain PyTorch ops over the image, a batched ``eigh`` of
+the two 3x3 blocks and one 6x6 ``solve_ex`` a step; the CPU tests hold it
+against the JAX package) and, for CUDA tensors, one launch of the
+hand-written kernel ``kernels/cuda/csrc/gn_step.cu`` a step
+(``kernels/cuda/gn_step.py``), which reads the pose on the device and writes
+the next one there. Neither path reads a value back to the host, so a
+tracked frame does not synchronise on the card.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from ..core import camera as cam
 from ..core import se3, trace
 from ..core.types import f32_reciprocal
 from ..kernels import raycast as rc
+from ..kernels.cuda import gn_step as _cuda
 from ..kernels.tsdf import TSDFVolume
 
 
@@ -85,36 +90,78 @@ def _gn_level(
     iters: int,
     cfg: OdometryConfig,
 ):
-    """Run ``iters`` GN steps at one pyramid level; returns (pose, n_ok, rmse, obs)."""
-    verts_cam = cam.unproject(depth, intr).reshape(-1, 3)
-    valid_d = (depth > 0).reshape(-1)
+    """Run ``iters`` GN steps at one pyramid level; returns (pose, n_ok, rmse, obs).
+
+    CPU tensors run :func:`_gn_level_plain`; CUDA tensors launch the
+    ``gn_step`` kernel once a step (or raise).
+    """
+    dev = depth.device
+    if dev.type == "cpu":
+        return _gn_level_plain(depth, intr, model, model_pose, model_intr, T0, T_prior, iters, cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"_gn_level: unsupported device {dev}")
+    return _cuda.gn_level_cuda(depth, intr, model, model_pose, model_intr, T0, T_prior, iters, cfg)
+
+
+def gn_normal_equations(
+    verts_cam: torch.Tensor,
+    valid_d: torch.Tensor,
+    model: rc.RaycastResult,
+    model_pose: torch.Tensor,
+    model_intr: cam.Intrinsics,
+    T: torch.Tensor,
+    cfg: OdometryConfig,
+):
+    """The image pass of one plain GN step at pose ``T``: projective
+    association of the level's points ``verts_cam (N, 3)`` (valid where
+    ``valid_d``) against the model, then ``(H, g, wf, r)``: the data term's
+    6x6 ``J^T W J``, ``J^T W r``, the 0/1 weight of each pixel and its
+    residual (zero where rejected)."""
     mR = model_pose[:3, :3]
     mt = model_pose[:3, 3]
     m_verts = model.vertices.reshape(-1, 3)
     m_normals = model.normals.reshape(-1, 3)
     m_valid = model.valid.reshape(-1)
+    p_w = verts_cam @ T[:3, :3].T + T[:3, 3]
+    # Project into the model (raycast) camera for association.
+    p_m = (p_w - mt) @ mR
+    (u, v), in_img = cam.project_uv(p_m[:, 0], p_m[:, 1], p_m[:, 2], model_intr)
+    pix = cam.pixel_index(u, v, model_intr)
+    q = m_verts[pix]
+    n = m_normals[pix]
+    diff = p_w - q
+    ok = valid_d & in_img & m_valid[pix] & ((diff * diff).sum(-1) < cfg.dist_threshold**2)
+    # Zero the rejected pixels BEFORE any arithmetic: raycast normals of
+    # invalid pixels can be NaN, and NaN * 0 = NaN would poison H.
+    wf = ok.to(torch.float32)
+    n = torch.where(ok[:, None], n, 0.0)
+    q = torch.where(ok[:, None], q, 0.0)
+    r = (n * (p_w - q)).sum(-1)
+    J = torch.cat([n, torch.linalg.cross(p_w, n, dim=-1)], dim=-1)  # (N, 6)
+    H = (J * wf[:, None]).T @ J
+    g = (J * (wf * r)[:, None]).sum(0)
+    return H, g, wf, r
+
+
+def _gn_level_plain(
+    depth: torch.Tensor,
+    intr: cam.Intrinsics,
+    model: rc.RaycastResult,
+    model_pose: torch.Tensor,
+    model_intr: cam.Intrinsics,
+    T0: torch.Tensor,
+    T_prior: torch.Tensor,
+    iters: int,
+    cfg: OdometryConfig,
+):
+    """Plain PyTorch version of :func:`_gn_level`."""
+    verts_cam = cam.unproject(depth, intr).reshape(-1, 3)
+    valid_d = (depth > 0).reshape(-1)
     eye6 = torch.eye(6, dtype=torch.float32, device=depth.device)
     T = T0
     n_ok = rmse = obs = None
     for _ in range(iters):
-        p_w = verts_cam @ T[:3, :3].T + T[:3, 3]
-        # Project into the model (raycast) camera for association.
-        p_m = (p_w - mt) @ mR
-        (u, v), in_img = cam.project_uv(p_m[:, 0], p_m[:, 1], p_m[:, 2], model_intr)
-        pix = cam.pixel_index(u, v, model_intr)
-        q = m_verts[pix]
-        n = m_normals[pix]
-        diff = p_w - q
-        ok = valid_d & in_img & m_valid[pix] & ((diff * diff).sum(-1) < cfg.dist_threshold**2)
-        # Zero the rejected pixels BEFORE any arithmetic: raycast normals of
-        # invalid pixels can be NaN, and NaN * 0 = NaN would poison H.
-        wf = ok.to(torch.float32)
-        n = torch.where(ok[:, None], n, 0.0)
-        q = torch.where(ok[:, None], q, 0.0)
-        r = (n * (p_w - q)).sum(-1)
-        J = torch.cat([n, torch.linalg.cross(p_w, n, dim=-1)], dim=-1)  # (N, 6)
-        H = (J * wf[:, None]).T @ J
-        g = (J * (wf * r)[:, None]).sum(0)
+        H, g, wf, r = gn_normal_equations(verts_cam, valid_d, model, model_pose, model_intr, T, cfg)
         if cfg.prior_beta > 0:
             # Spectral-floor prior: fill eigendirections below beta * lambda_max
             # up to that floor with a pull toward the seed pose.
