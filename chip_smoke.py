@@ -759,7 +759,7 @@ def check_gn_step(dev) -> dict:
     from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
     from elasticreconstruction_tpu_torch.core import camera as cam
     from elasticreconstruction_tpu_torch.kernels import raycast as rc
-    from elasticreconstruction_tpu_torch.kernels.cuda import gn_step
+    from elasticreconstruction_tpu_torch.kernels.cuda import build, gn_step
     from elasticreconstruction_tpu_torch.odometry import kinfu
 
     vol, poses, depths = raycast_volume(dev, frames=5, fused=4)
@@ -806,9 +806,9 @@ def check_gn_step(dev) -> dict:
                for lvl in by_level if not errors[f"level_{lvl}_pose"] <= GN_LEVEL_POSE_ATOL]
     if faults:
         fail("gn_step against the plain step: " + "; ".join(faults))
-    before = gn_step.launches
+    before = build.launches["gn_step"]
     kinfu.track_frame(vol, depths[4], seed, PRIMESENSE, cfg)
-    launches = gn_step.launches - before
+    launches = build.launches["gn_step"] - before
     if launches != sum(cfg.iterations[:cfg.levels]):
         fail(f"gn_step: {launches} launches in one track_frame")
     frame_ms = sum(b["ms_per_step"] * b["steps"] for b in by_level.values())
@@ -850,33 +850,25 @@ def phase_kernel_parity() -> dict:
 
 
 def launch_counts() -> dict:
-    from elasticreconstruction_tpu_torch.kernels.cuda import calib, gn_step, icp_step, nn
-    from elasticreconstruction_tpu_torch.kernels.cuda import raycast as rc_cuda
+    """Launches of every kernel since the last reset, by name (importing the
+    wrappers declares them all)."""
+    from elasticreconstruction_tpu_torch.kernels.cuda import build, calib, gn_step, icp_step, nn, raycast  # noqa: F401
 
-    return {"nearest_batch": nn.launches, "normal_eqs_batch": icp_step.launches, "raycast": rc_cuda.launches,
-            "gn_step": gn_step.launches, **calib.launches}
+    return dict(build.launches)
 
 
 def launches_by_shape() -> dict:
     """Launches of the two pipeline kernels since the last reset, by (B, Nq, Nr)."""
-    from elasticreconstruction_tpu_torch.kernels.cuda import icp_step, nn
+    from elasticreconstruction_tpu_torch.kernels.cuda import build, icp_step, nn  # noqa: F401
 
-    return {name: {str(shape): count for shape, count in sorted(mod.launches_by_shape.items())}
-            for name, mod in (("nearest_batch", nn), ("normal_eqs_batch", icp_step))}
+    return {name: {str(shape): count for shape, count in sorted(build.launches_by_shape[name].items())}
+            for name in ("nearest_batch", "normal_eqs_batch")}
 
 
 def reset_launch_counts() -> None:
-    from elasticreconstruction_tpu_torch.kernels.cuda import calib, gn_step, icp_step, nn
-    from elasticreconstruction_tpu_torch.kernels.cuda import raycast as rc_cuda
+    from elasticreconstruction_tpu_torch.kernels.cuda import build
 
-    nn.launches = 0
-    icp_step.launches = 0
-    rc_cuda.launches = 0
-    gn_step.launches = 0
-    nn.launches_by_shape.clear()
-    icp_step.launches_by_shape.clear()
-    for name in calib.launches:
-        calib.launches[name] = 0
+    build.reset_launches()
 
 
 def require_launched(path: str, counts: dict, names) -> None:
@@ -917,7 +909,7 @@ def phase_calibration() -> dict:
     entries = kb.bench_kernels(cal["peaks"], None, "cuda")
     counts = launch_counts()
     print(json.dumps({"calibration_launches_by_shape": launches_by_shape()}))
-    require_launched("calibration", counts, calib.launches)
+    require_launched("calibration", counts, calib.KERNELS)
     print(json.dumps({"calibrated_peaks": {
         k: {"value": v, "share_of_data_sheet": cal["share_of_data_sheet"][k]} for k, v in cal["peaks"].items()}}))
     print(json.dumps({"scored_kernels": entries}))
@@ -954,7 +946,7 @@ def main_path(dev, num_frag: int, n: int, cfg, batch: int, reps: int, seed: int 
     """
     import bench_gpu
     from elasticreconstruction_tpu_torch.bench_scene import make_fragments
-    from elasticreconstruction_tpu_torch.kernels.cuda import icp_step, nn
+    from elasticreconstruction_tpu_torch.kernels.cuda import build
     from elasticreconstruction_tpu_torch.registration import refine_edges_batch, register_prepped_batch
 
     clouds, poses = make_fragments(num_frag, n=n, seed=seed)
@@ -962,11 +954,11 @@ def main_path(dev, num_frag: int, n: int, cfg, batch: int, reps: int, seed: int 
     counts = {}
 
     def count(part):  # kernel launches since the previous part, per kernel
-        now = (nn.launches, icp_step.launches)
+        now = (build.launches["nearest_batch"], build.launches["normal_eqs_batch"])
         counts[part] = [a - b for a, b in zip(now, count.last)]
         count.last = now
 
-    count.last = (nn.launches, icp_step.launches)
+    count.last = (build.launches["nearest_batch"], build.launches["normal_eqs_batch"])
     synchronize(dev)
     t0 = time.perf_counter()
     prepped, results = bench_gpu.register_pass(clouds, cfg, ii, jj, batch, dev)
@@ -1671,15 +1663,15 @@ def elastic_mode(dev, ds, data: str, out: str, mode: str, extra_argv=()) -> dict
 
     from elasticreconstruction_tpu_torch.core import io_logfmt
     from elasticreconstruction_tpu_torch.elastic.lattice import Lattice
-    from elasticreconstruction_tpu_torch.kernels.cuda import nn
+    from elasticreconstruction_tpu_torch.kernels.cuda import build
     from elasticreconstruction_tpu_torch.pipeline import run
     from elasticreconstruction_tpu_torch.tools.repeat_check import first_difference
 
     argv = ["--data", data, "--out", out, "--device", str(dev), "--slac-mode", mode, *extra_argv]
     rec, logs, faults = {"mode": mode}, {}, []
     for verb in ("optimize", "integrate", "evaluate"):
-        by_shape = dict(nn.launches_by_shape)
-        launched = nn.launches
+        by_shape = dict(build.launches_by_shape["nearest_batch"])
+        launched = build.launches["nearest_batch"]
         synchronize(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -1690,8 +1682,9 @@ def elastic_mode(dev, ds, data: str, out: str, mode: str, extra_argv=()) -> dict
         if dev.type == "cuda":
             rec[verb + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         if verb == "optimize":
-            rec["nearest_batch_launches"] = nn.launches - launched
-            rec["nearest_batch_shapes"] = {str(k): v - by_shape.get(k, 0) for k, v in nn.launches_by_shape.items()
+            rec["nearest_batch_launches"] = build.launches["nearest_batch"] - launched
+            rec["nearest_batch_shapes"] = {str(k): v - by_shape.get(k, 0)
+                                           for k, v in build.launches_by_shape["nearest_batch"].items()
                                            if v > by_shape.get(k, 0)}
     done = find_log(logs["optimize"], "optimize", "done")
     rec.update({k: done[k] for k in ("rmse_before", "rmse_after", "correspondences", "edges", "rounds")},

@@ -16,6 +16,9 @@ see ``csrc/nn.cuh``), and the plain version mirrors them. ``calib`` takes ``-fma
 multiply-adds, and under ``-fmad=false`` it would execute a multiply and an add
 and measure half the rate. ``-Xptxas -v`` output (registers, shared memory,
 spills) is kept in :data:`build_logs`.
+
+Every kernel is declared here as a :class:`Kernel`, launched and counted
+through it (:data:`launches`) and routed to by :func:`on_card`.
 """
 
 from __future__ import annotations
@@ -135,6 +138,80 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes: list):
+    """``lib.<symbol>`` with its ``argtypes`` and an ``int`` return declared."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# Launches since the last reset_launches(): by kernel name, and by name and shape.
+launches: dict[str, int] = {}
+launches_by_shape: dict[str, dict[tuple, int]] = {}
+
+
+def reset_launches() -> None:
+    """Zero every count in place (the dicts stay the same objects)."""
+    for name in launches:
+        launches[name] = 0
+    for shapes in launches_by_shape.values():
+        shapes.clear()
+
+
+class Kernel:
+    """The launch function ``er_<name>`` of ``csrc/<source>.cu``, declared once.
+
+    ``argtypes`` are the C types of its arguments but the last, the CUDA
+    stream. Nothing is built before the first launch (or :attr:`lib`), which
+    loads the library, runs ``on_load(lib)`` once and binds the function. A
+    launch raises through :func:`check` on a non-zero return and is counted
+    under ``name`` in :data:`launches`, and under ``shape`` too, when given,
+    in :data:`launches_by_shape`.
+    """
+
+    def __init__(self, source: str, name: str, argtypes: list, *, on_load=None):
+        self.source, self.name, self.argtypes, self.on_load = source, name, argtypes, on_load
+        self._lib = self._fn = None
+        launches.setdefault(name, 0)
+        self.by_shape = launches_by_shape.setdefault(name, {})
+
+    def _bind(self):
+        (lib,) = load(self.source)
+        if self.on_load is not None:
+            self.on_load(lib)
+        self._lib, self._fn = lib, bind(lib, f"er_{self.name}", [*self.argtypes, ctypes.c_void_p])
+        return self._fn
+
+    @property
+    def lib(self) -> ctypes.CDLL:
+        """The loaded library, for its helper symbols that are not launches."""
+        if self._fn is None:
+            self._bind()
+        return self._lib
+
+    def __call__(self, device: torch.device, *args, shape: tuple | None = None) -> None:
+        """Launch with ``args`` on the current stream of ``device``."""
+        self.launch(*args, torch.cuda.current_stream(device).cuda_stream, shape=shape)
+
+    def launch(self, *args, shape: tuple | None = None) -> None:
+        """Launch with ``args``, the stream last among them."""
+        fn = self._fn or self._bind()
+        check(fn(*args), self.name)
+        launches[self.name] += 1
+        if shape is not None:
+            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+
+
+def on_card(t: torch.Tensor, op: str) -> bool:
+    """The route rule: ``False`` for a CPU tensor (run the plain version),
+    ``True`` for a CUDA tensor (launch the kernel); any other device raises."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: unsupported device {t.device}")
+    return kind == "cuda"
 
 
 def check_args(name: str, tensors: dict, dtypes: dict, shapes: dict) -> None:

@@ -21,7 +21,7 @@ by operations: 8 bytes move per element against ``2 * 8 * iters`` flop
 (1024 at ``iters = 64``, against the card's ~20 flop/byte ridge).
 
 CUDA tensors launch the kernel; CPU tensors run the plain version; any other
-device raises. ``launches`` counts kernel launches per function.
+device raises.
 """
 
 from __future__ import annotations
@@ -56,14 +56,9 @@ def lane_instructions(name: str, iters: int = 64) -> int:
     return (CHAINS * STEP_INSTRUCTIONS[name] + SHARED_INSTRUCTIONS[name]) * iters
 
 
-# Kernel launches since the last reset, per wrapper (set an entry to 0 to reset).
-launches = {"fma_chain": 0, "where_chain": 0, "threshold_sum_chain": 0}
-
-_KERNEL_OF = {
-    "fma_chain": "fma_chain_kernel",
-    "where_chain": "where_chain_kernel",
-    "threshold_sum_chain": "threshold_sum_chain_kernel",
-}
+# The launch function of each wrapper: its pointers (the inputs and the output), then n and iters.
+KERNELS = {name: build.Kernel("calib", name, [ctypes.c_void_p] * pointers + [ctypes.c_int64, ctypes.c_int])
+           for name, pointers in (("fma_chain", 2), ("where_chain", 3), ("threshold_sum_chain", 2))}
 
 
 def _f32(v: float) -> torch.Tensor:
@@ -113,32 +108,17 @@ def threshold_sum_chain_plain(x: torch.Tensor, iters: int = 64) -> torch.Tensor:
     return _total(chains)
 
 
-def _kernel(name: str, pointers: int):
-    (lib,) = build.load("calib")
-    fn = getattr(lib, f"er_{name}")
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, plain, inputs: dict[str, torch.Tensor], iters: int) -> torch.Tensor:
     x = inputs["x"]
     if iters < 0 or iters % UNROLL:
         raise ValueError(f"{name}: iters must be a non-negative multiple of {UNROLL}, got {iters}")
-    if x.device.type == "cpu":
+    if not build.on_card(x, name):
         return plain(*inputs.values(), iters)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
     build.check_args(name, inputs, dict.fromkeys(inputs, torch.float32), dict.fromkeys(inputs, x.shape))
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    err = _kernel(name, len(inputs) + 1)(
-        *(t.data_ptr() for t in inputs.values()), out.data_ptr(), x.numel(), iters,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, name)
-    launches[name] += 1
+    KERNELS[name](x.device, *(t.data_ptr() for t in inputs.values()), out.data_ptr(), x.numel(), iters)
     return out
 
 
@@ -225,7 +205,8 @@ def sass_counts() -> dict[str, dict[str, int]]:
     """
     by_kernel = loop_body_counts(library_sass("calib"))
     out = {}
-    for name, kernel in _KERNEL_OF.items():
+    for name in KERNELS:
+        kernel = f"{name}_kernel"
         found = [v for k, v in by_kernel.items() if kernel in k]
         if len(found) != 1:
             raise RuntimeError(f"calib SASS: expected one loop in {kernel}, found {len(found)}")

@@ -17,17 +17,13 @@ bit; the kernel agrees with itself bit for bit (no float atomics).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ...core import camera as cam
-from ...core import trace
 from ...core.types import f32_reciprocal
 from . import build
-
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
 
 STATE = 48  # floats of a level's state: T (16, row-major), n_ok, rmse, obs, then the sums
 SUMS = 29  # 21 upper-triangle H (row-major), g (6), n_ok, sum r^2
@@ -35,16 +31,12 @@ _N_OK, _RMSE, _OBS, _SUMS = 16, 17, 18, 19
 _UPPER = [(i, j) for i in range(6) for j in range(i, 6)]
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    (lib,) = build.load("gn_step")
-    lib.er_gn_step.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
-                               + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_double] * 4
-                               + [ctypes.c_void_p] * 6 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-    lib.er_gn_step.restype = ctypes.c_int
-    lib.er_gn_step_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.er_gn_step_blocks.restype = ctypes.c_int
-    return lib
+_KERNEL = build.Kernel(
+    "gn_step", "gn_step",
+    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    + [ctypes.c_double] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_float] * 6,
+    on_load=lambda lib: build.bind(lib, "er_gn_step_blocks", [ctypes.c_int] * 2),
+)
 
 
 def _launcher(depth: torch.Tensor, intr: cam.Intrinsics, model, model_pose: torch.Tensor,
@@ -63,9 +55,8 @@ def _launcher(depth: torch.Tensor, intr: cam.Intrinsics, model, model_pose: torc
          "model_pose": (4, 4), "T_prior": (4, 4), "state": (STATE,)})
     if (intr.height, intr.width) != (h, w):
         raise ValueError(f"gn_step: intrinsics of {intr.height}x{intr.width} for a depth of {h}x{w}")
-    lib = _lib()
     dev = depth.device
-    partials = build.scratch(dev, SUMS * lib.er_gn_step_blocks(h, w))
+    partials = build.scratch(dev, SUMS * _KERNEL.lib.er_gn_step_blocks(h, w))
     counter = build.counters(dev, 1)
     f32 = np.float32
     head = (depth.data_ptr(), h, w, float(f32(intr.cx)), float(f32(intr.cy)), f32_reciprocal(intr.fx),
@@ -78,13 +69,10 @@ def _launcher(depth: torch.Tensor, intr: cam.Intrinsics, model, model_pose: torc
             torch.cuda.current_stream(dev).cuda_stream)
 
     def launch(T_in: torch.Tensor) -> None:
-        global launches
         if T_in is not state:
             build.check_args("gn_step", {"depth": depth, "T_in": T_in}, {"depth": torch.float32,
                              "T_in": torch.float32}, {"depth": (h, w), "T_in": (4, 4)})
-        build.check(lib.er_gn_step(*head, T_in.data_ptr(), *tail), "gn_step")
-        launches += 1
-        trace.count("gn_step_kernel", 1)
+        _KERNEL.launch(*head, T_in.data_ptr(), *tail)
 
     return launch
 

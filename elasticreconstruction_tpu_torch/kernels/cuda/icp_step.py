@@ -12,7 +12,6 @@ those of ``kernels/cuda/nn.py``, in both routes.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -20,9 +19,6 @@ from ...core.types import f32_square
 from . import build
 from . import nn as _nn
 from .nn import nearest_batch_plain
-
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
-launches_by_shape: dict[tuple[int, int, int], int] = {}  # the same by (B, N, M); clear() to reset
 
 _NUM_SUMS = 29  # per (batch, query tile) in scratch: 21 upper-triangle H, 6 g, n_in, wrr
 _OUT_WIDTH = 44  # the kernel's output row: 36 H (row-major, symmetric), 6 g, n_in, wrr
@@ -57,20 +53,8 @@ def normal_eqs_batch_plain(p, src_w, dst_pts, dst_nrm, dst_mask, *, max_dist: fl
     return normal_eqs_from_matches(p, src_w, dst_pts, dst_nrm, d2, idx, max_dist)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    (lib,) = build.load("icp_step")
-    _nn.check_geometry(lib)
-    fn = lib.er_normal_eqs_batch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _count_launch(shape: tuple[int, int, int]) -> None:
-    global launches
-    launches += 1
-    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
+_KERNEL = build.Kernel("icp_step", "normal_eqs_batch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float],
+                       on_load=_nn.check_geometry)
 
 
 def normal_eqs_batch(p, src_w, dst_pts, dst_nrm, dst_mask, *, max_dist: float):
@@ -85,10 +69,8 @@ def normal_eqs_batch(p, src_w, dst_pts, dst_nrm, dst_mask, *, max_dist: float):
     cached per device (``build.scratch``): launches of one device must stay on
     one stream.
     """
-    if p.device.type == "cpu":
+    if not build.on_card(p, "normal_eqs_batch"):
         return normal_eqs_batch_plain(p, src_w, dst_pts, dst_nrm, dst_mask, max_dist=max_dist)
-    if p.device.type != "cuda":
-        raise ValueError(f"normal_eqs_batch: unsupported device {p.device}")
     b, n, _ = p.shape
     m = dst_pts.shape[1]
     build.check_args(
@@ -103,18 +85,14 @@ def normal_eqs_batch(p, src_w, dst_pts, dst_nrm, dst_mask, *, max_dist: float):
         raise ValueError("normal_eqs_batch needs at least one dst point")
     if b * n == 0:
         return unpack_sums(torch.zeros((b, _OUT_WIDTH), dtype=torch.float32, device=p.device))
-    fn = _kernel()
     geo = _nn.plan(b, n, m, _nn.sm_count(p.device.index))
     scratch, counters = _nn.search_scratch(
         p.device, b, geo, extra_floats=b * geo.tiles * _NUM_SUMS, extra_counters=b
     )
     out = torch.empty((b, _OUT_WIDTH), dtype=torch.float32, device=p.device)
-    err = fn(
-        p.data_ptr(), src_w.data_ptr(), dst_pts.data_ptr(), dst_nrm.data_ptr(),
+    _KERNEL(
+        p.device, p.data_ptr(), src_w.data_ptr(), dst_pts.data_ptr(), dst_nrm.data_ptr(),
         dst_mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
-        b, n, m, geo.splits, geo.range, f32_square(max_dist),
-        torch.cuda.current_stream(p.device).cuda_stream,
+        b, n, m, geo.splits, geo.range, f32_square(max_dist), shape=(b, n, m),
     )
-    build.check(err, "normal_eqs_batch")
-    _count_launch((b, n, m))
     return unpack_sums(out)

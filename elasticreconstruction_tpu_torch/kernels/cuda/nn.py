@@ -53,9 +53,6 @@ MIN_RANGE = 512  # do not split finer than this
 # was among the fastest measured on an H100 (PERF.md).
 BLOCK_OVERHEAD = 128
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
-launches_by_shape: dict[tuple[int, int, int], int] = {}  # the same by (B, Nq, Nr); clear() to reset
-
 
 class Plan(NamedTuple):
     """Launch geometry of one search: grid ``(tiles, splits, B)``."""
@@ -144,9 +141,8 @@ def sm_count(index: int) -> int:
 
 def check_geometry(lib: ctypes.CDLL) -> None:
     """Raise unless the built library was compiled with this module's geometry."""
-    lib.er_nn_geometry.argtypes = [ctypes.c_int]
-    lib.er_nn_geometry.restype = ctypes.c_int
-    got = tuple(lib.er_nn_geometry(k) for k in range(4))
+    geometry = build.bind(lib, "er_nn_geometry", [ctypes.c_int])
+    got = tuple(geometry(k) for k in range(4))
     want = (THREADS, QUERIES_PER_THREAD, CHUNK, MAX_RANGE)
     if got != want:
         raise RuntimeError(f"csrc/nn.cuh geometry {got} differs from kernels/cuda/nn.py {want}")
@@ -161,20 +157,9 @@ def search_scratch(device: torch.device, b: int, geo: Plan, extra_floats: int = 
             build.counters(device, b * geo.tiles + extra_counters))
 
 
-def _count_launch(shape: tuple[int, int, int]) -> None:
-    global launches
-    launches += 1
-    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    (lib,) = build.load("nn")
-    check_geometry(lib)
-    fn = lib.er_nearest_batch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_KERNEL = build.Kernel("nn", "nearest_batch", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5, on_load=check_geometry)
+# The registry's dict of launches by (B, Nq, Nr), by the name benchmark/entries/register.py reads and clears.
+launches_by_shape = _KERNEL.by_shape
 
 
 def nearest_batch(
@@ -188,10 +173,8 @@ def nearest_batch(
     is cached per device (``build.scratch``): launches of one device must stay
     on one stream.
     """
-    if query.device.type == "cpu":
+    if not build.on_card(query, "nearest_batch"):
         return nearest_batch_plain(query, ref, ref_mask)
-    if query.device.type != "cuda":
-        raise ValueError(f"nearest_batch: unsupported device {query.device}")
     b, nq, _ = query.shape
     nr = ref.shape[1]
     build.check_args(
@@ -206,16 +189,12 @@ def nearest_batch(
     idx = torch.empty((b, nq), dtype=torch.int32, device=query.device)
     if b * nq == 0:
         return d2, idx
-    fn = _kernel()
     geo = plan(b, nq, nr, sm_count(query.device.index))
     scratch, counters = search_scratch(query.device, b, geo)
-    err = fn(
-        query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(), d2.data_ptr(), idx.data_ptr(),
-        scratch.data_ptr(), counters.data_ptr(), b, nq, nr, geo.splits, geo.range,
-        torch.cuda.current_stream(query.device).cuda_stream,
+    _KERNEL(
+        query.device, query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+        scratch.data_ptr(), counters.data_ptr(), b, nq, nr, geo.splits, geo.range, shape=(b, nq, nr),
     )
-    build.check(err, "nearest_batch")
-    _count_launch((b, nq, nr))
     return d2, idx
 
 

@@ -13,27 +13,17 @@ current stream, with no readback.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ...core import camera as cam
-from ...core import se3, trace
+from ...core import se3
 from ...core.types import f32_reciprocal
 from . import build
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    (lib,) = build.load("raycast")
-    fn = lib.er_raycast
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 7
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_KERNEL = build.Kernel("raycast", "raycast",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 7 + [ctypes.c_int])
 
 
 def raycast_cuda(vol, pose: torch.Tensor, intr: cam.Intrinsics, *, depth_min: float, depth_max: float,
@@ -58,14 +48,10 @@ def raycast_cuda(vol, pose: torch.Tensor, intr: cam.Intrinsics, *, depth_min: fl
     normals = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
     dz = np.float32((depth_max - depth_min) / num_steps)
-    err = _kernel()(
-        vol.tsdf.data_ptr(), vol.weight.data_ptr(), dirs.data_ptr(), pose.data_ptr(),
+    _KERNEL(
+        dev, vol.tsdf.data_ptr(), vol.weight.data_ptr(), dirs.data_ptr(), pose.data_ptr(),
         vertices.data_ptr(), normals.data_ptr(), valid.data_ptr(), h, w, *shape,
         *vol.origin, vol.voxel_size, f32_reciprocal(vol.voxel_size), float(np.float32(depth_min)),
-        float(dz), num_steps, torch.cuda.current_stream(dev).cuda_stream,
+        float(dz), num_steps,
     )
-    build.check(err, "raycast")
-    global launches
-    launches += 1
-    trace.count("raycast_kernel", 1)
     return vertices, normals, valid

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.types import fma
+from .cuda import build
 from .cuda import nn as _cuda_nn
 
 
@@ -87,7 +88,7 @@ def nearest_auto(
     ``3e38`` on the card and ``inf`` here, which every caller gates behind its
     own radius.
     """
-    if query.device.type == "cpu":
+    if not build.on_card(query, "nearest_auto"):
         return nearest(query, ref, ref_mask)
     return _cuda_nn.nearest(query, ref, ref_mask)
 

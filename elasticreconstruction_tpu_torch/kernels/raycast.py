@@ -23,6 +23,7 @@ import torch
 from ..core import camera as cam
 from ..core import se3
 from ..core.types import fma
+from .cuda import build
 from .cuda import raycast as _cuda
 from .tsdf import TSDFVolume, _gradient, _nearest, _trilinear, make_sampling_volume
 
@@ -50,11 +51,8 @@ def raycast(
     kernel (or raises).
     """
     kw = dict(depth_min=depth_min, depth_max=depth_max, num_steps=num_steps)
-    dev = vol.tsdf.device
-    if dev.type == "cpu":
+    if not build.on_card(vol.tsdf, "raycast"):
         return raycast_plain(vol, pose, intr, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"raycast: unsupported device {dev}")
     return RaycastResult(*_cuda.raycast_cuda(vol, pose, intr, **kw))
 
 

@@ -25,6 +25,7 @@ from ..core import camera as cam
 from ..core import se3, trace
 from ..core.types import f32_reciprocal
 from ..kernels import raycast as rc
+from ..kernels.cuda import build
 from ..kernels.cuda import gn_step as _cuda
 from ..kernels.tsdf import TSDFVolume
 
@@ -95,11 +96,8 @@ def _gn_level(
     CPU tensors run :func:`_gn_level_plain`; CUDA tensors launch the
     ``gn_step`` kernel once a step (or raise).
     """
-    dev = depth.device
-    if dev.type == "cpu":
+    if not build.on_card(depth, "_gn_level"):
         return _gn_level_plain(depth, intr, model, model_pose, model_intr, T0, T_prior, iters, cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"_gn_level: unsupported device {dev}")
     return _cuda.gn_level_cuda(depth, intr, model, model_pose, model_intr, T0, T_prior, iters, cfg)
 
 

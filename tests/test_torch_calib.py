@@ -15,6 +15,8 @@
 """
 
 import copy
+import ctypes
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +26,7 @@ import torch
 
 import kernels_bench
 import kernels_bench_gpu
-from elasticreconstruction_tpu_torch.kernels.cuda import build, calib
+from elasticreconstruction_tpu_torch.kernels.cuda import build, calib, nn
 
 ITERS, NCH = 64, 8
 
@@ -104,8 +106,8 @@ def test_wrappers_check_iters_and_device():
                  lambda: calib.threshold_sum_chain(meta)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
-    assert set(calib.launches) == {"fma_chain", "where_chain", "threshold_sum_chain"}
-    assert all(v == 0 for v in calib.launches.values())  # the CPU route launches nothing
+    assert set(calib.KERNELS) == {"fma_chain", "where_chain", "threshold_sum_chain"}
+    assert all(build.launches[name] == 0 for name in calib.KERNELS)  # the CPU route launches nothing
 
 
 # ---- _sol ------------------------------------------------------------------
@@ -212,6 +214,50 @@ def test_build_flags_per_source():
         flags = build.nvcc_flags(name)
         assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
         assert (build.CSRC / f"{name}.cu").exists()
+
+
+def test_kernel_seam_launches_counts_and_routes(monkeypatch):
+    """``build.Kernel`` on a stand-in library: nothing loads before the first
+    launch; a launch passes the arguments and the stream, is counted by name
+    and by shape, and raises with the kernel's name on a non-zero return; the
+    reset clears the registry in place; ``on_card`` routes by device."""
+    calls = []
+
+    def er_stand_in(*args):
+        calls.append(args)
+        return args[0]  # the stand-in returns its first argument as the error code
+
+    lib = types.SimpleNamespace(er_stand_in=er_stand_in)
+    loaded, hooked = [], []
+    monkeypatch.setattr(build, "load", lambda *names: loaded.append(names) or [lib])
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: types.SimpleNamespace(cuda_stream=4321))
+    monkeypatch.setattr(build, "launches", dict(build.launches))
+    monkeypatch.setattr(build, "launches_by_shape", dict(build.launches_by_shape))
+    kernel = build.Kernel("calib", "stand_in", [ctypes.c_int, ctypes.c_float], on_load=hooked.append)
+    assert loaded == [] and build.launches["stand_in"] == 0 and build.launches_by_shape["stand_in"] == {}
+    kernel(torch.device("cuda", 0), 0, 1.5, shape=(2, 3, 4))
+    kernel(torch.device("cuda", 0), 0, 2.5, shape=(2, 3, 4))
+    kernel.launch(0, 3.5, 99)
+    assert loaded == [("calib",)] and hooked == [lib]
+    assert calls == [(0, 1.5, 4321), (0, 2.5, 4321), (0, 3.5, 99)]
+    assert er_stand_in.argtypes == [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    assert er_stand_in.restype is ctypes.c_int
+    assert build.launches["stand_in"] == 3 and build.launches_by_shape["stand_in"] == {(2, 3, 4): 2}
+    with pytest.raises(RuntimeError, match="stand_in: CUDA launch failed with cudaError 700"):
+        kernel(torch.device("cuda", 0), 700, 0.0, shape=(2, 3, 4))
+    assert build.launches["stand_in"] == 3 and build.launches_by_shape["stand_in"] == {(2, 3, 4): 2}
+
+    registry = build.launches_by_shape["nearest_batch"]
+    assert nn.launches_by_shape is registry
+    build.reset_launches()
+    assert build.launches["stand_in"] == 0 and kernel.by_shape == {}
+    assert build.launches_by_shape["stand_in"] is kernel.by_shape
+    assert nn.launches_by_shape is build.launches_by_shape["nearest_batch"] is registry and registry == {}
+
+    assert build.on_card(types.SimpleNamespace(device=torch.device("cuda", 0)), "op")
+    assert not build.on_card(torch.zeros(1), "op")
+    with pytest.raises(ValueError, match="op: unsupported device meta"):
+        build.on_card(torch.zeros(1, device="meta"), "op")
 
 
 def test_library_name_covers_the_flags(monkeypatch):

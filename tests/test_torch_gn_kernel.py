@@ -168,9 +168,9 @@ def test_steps_against_the_plain_step_on_a_512_volume(card, livingroom_512, case
     T = seed
     for lvl in range(cfg.levels - 1, -1, -1):
         iters = cfg.iterations[lvl]
-        before = gn_step.launches
+        before = build.launches["gn_step"]
         got = _twice(lambda: kinfu._gn_level(depths[lvl], intrs[lvl], model, seed, m_intr, T, seed, iters, cfg))
-        assert gn_step.launches == before + 2 * iters
+        assert build.launches["gn_step"] == before + 2 * iters
         want = kinfu._gn_level_plain(depths[lvl], intrs[lvl], model, seed, m_intr, T, seed, iters, cfg)
         level_err = (got[0] - want[0]).abs().max().item()
         errors[f"level_{lvl}_pose"] = level_err
@@ -188,13 +188,13 @@ def test_track_frame_launches_once_a_step_and_never_synchronises(card, livingroo
     seed = se3.exp(SEED_MOVE.to(card)) @ pose
     kinfu.track_frame(vol, depth, seed, cam.PRIMESENSE, ODOM)  # warm: the libraries' handles
     torch.cuda.synchronize()
-    before = gn_step.launches
+    before = build.launches["gn_step"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = kinfu.track_frame(vol, depth, seed, cam.PRIMESENSE, ODOM)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert gn_step.launches == before + sum(ODOM.iterations[:ODOM.levels]) == before + 19
+    assert build.launches["gn_step"] == before + sum(ODOM.iterations[:ODOM.levels]) == before + 19
     again = kinfu.track_frame(vol, depth, seed, cam.PRIMESENSE, ODOM)
     for a, b in zip(got, again):
         assert torch.equal(_bits(a), _bits(b))
@@ -273,7 +273,7 @@ def test_cpu_runs_the_plain_version_and_builds_nothing(monkeypatch):
         vol, depth, pose = _scene(cfg, SMALL_INTR, torch.device("cpu"))
         seed = se3.exp(SEED_MOVE) @ pose
         model, m_intr = _model(vol, seed, SMALL_INTR, odom)
-        before = gn_step.launches
+        before = build.launches["gn_step"]
         got = kinfu._gn_level(depth, SMALL_INTR, model, seed, m_intr, seed, seed, 3, odom)
         want = kinfu._gn_level_plain(depth, SMALL_INTR, model, seed, m_intr, seed, seed, 3, odom)
         for g, w in zip(got, want):
@@ -281,6 +281,6 @@ def test_cpu_runs_the_plain_version_and_builds_nothing(monkeypatch):
         assert got[1].item() > 100  # the frame has support
         tr = kinfu.track_frame(vol, depth, seed, SMALL_INTR, odom)
         assert torch.isfinite(tr.pose).all()
-        assert gn_step.launches == before
+        assert build.launches["gn_step"] == before
     finally:
         torch.set_num_threads(threads)

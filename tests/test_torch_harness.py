@@ -44,7 +44,7 @@ from elasticreconstruction_tpu_torch.dist import ring as t_ring
 from elasticreconstruction_tpu_torch.kernels import fpfh as t_fpfh
 from elasticreconstruction_tpu_torch.kernels import knn as t_knn
 from elasticreconstruction_tpu_torch.kernels import normals as t_normals
-from elasticreconstruction_tpu_torch.kernels.cuda import nn as t_nn
+from elasticreconstruction_tpu_torch.kernels.cuda import build
 from elasticreconstruction_tpu_torch.pipeline import run
 from elasticreconstruction_tpu_torch.registration import RegistrationConfig, prep_fragments_batch, register_prepped_batch
 from elasticreconstruction_tpu_torch.tools import ring_scale
@@ -78,9 +78,9 @@ def test_nearest_auto_matches_jax_and_launches_nothing_on_the_cpu():
     m = np.ones(900, bool)
     m[800:] = False
     d_j, i_j = j_knn.nearest_auto(*_j(q, r, m))
-    before = t_nn.launches
+    before = build.launches["nearest_batch"]
     d_t, i_t = t_knn.nearest_auto(*_t(q, r, m))
-    assert t_nn.launches == before
+    assert build.launches["nearest_batch"] == before
     assert i_t.dtype == torch.int32 and i_t.shape == (700,)
     np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-6)

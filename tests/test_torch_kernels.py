@@ -27,6 +27,7 @@ from elasticreconstruction_tpu_torch.kernels import fpfh as t_fpfh
 from elasticreconstruction_tpu_torch.kernels import knn as t_knn
 from elasticreconstruction_tpu_torch.kernels import normals as t_normals
 from elasticreconstruction_tpu_torch.kernels import voxel_grid as t_voxel
+from elasticreconstruction_tpu_torch.kernels.cuda import build
 from elasticreconstruction_tpu_torch.kernels.cuda import icp_step as t_icp_step
 from elasticreconstruction_tpu_torch.kernels.cuda import nn as t_nn
 
@@ -58,9 +59,9 @@ def test_nearest_batch_plain_matches_pallas_and_jnp(case):
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_p), atol=1e-5)
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-5)
     # CPU tensors route to the plain version (and launch nothing).
-    before = t_nn.launches
+    before = build.launches["nearest_batch"]
     d_w, i_w = t_knn.nearest_auto_batch(*_t(q, r, m))
-    assert t_nn.launches == before
+    assert build.launches["nearest_batch"] == before
     assert torch.equal(d_w, d_t) and torch.equal(i_w, i_t)
 
 
@@ -141,9 +142,9 @@ def test_normal_eqs_batch_plain_matches_xla_step():
     for a, b in ((H1, H2), (g1, g2), (w1, w2)):
         assert _rel(a.numpy(), b) < 1e-5
     # CPU tensors route to the plain version through the wrapper.
-    before = t_icp_step.launches
+    before = build.launches["normal_eqs_batch"]
     H3, g3, n3, w3 = t_icp_step.normal_eqs_batch(*_t(*args), max_dist=0.5)
-    assert t_icp_step.launches == before
+    assert build.launches["normal_eqs_batch"] == before
     assert torch.equal(H3, H1) and torch.equal(g3, g1) and torch.equal(n3, n1)
 
 

@@ -223,12 +223,12 @@ def test_scratch_and_counters_are_cached_and_grow():
 
 def test_cpu_route_counts_no_launch_by_shape():
     q, r, m = _t(*_cloud_pair(69, 1, 10, 20, 0))
-    before = (t_nn.launches, dict(t_nn.launches_by_shape),
-              t_icp_step.launches, dict(t_icp_step.launches_by_shape))
+    before = (build.launches["nearest_batch"], dict(build.launches_by_shape["nearest_batch"]),
+              build.launches["normal_eqs_batch"], dict(build.launches_by_shape["normal_eqs_batch"]))
     t_nn.nearest_batch(q, r, m)
     t_icp_step.normal_eqs_batch(*_t(*_icp_inputs(76, 1, 10, 20, 0)), max_dist=0.5)
-    assert before == (t_nn.launches, t_nn.launches_by_shape,
-                      t_icp_step.launches, t_icp_step.launches_by_shape)
+    assert before == (build.launches["nearest_batch"], build.launches_by_shape["nearest_batch"],
+                      build.launches["normal_eqs_batch"], build.launches_by_shape["normal_eqs_batch"])
 
 
 def test_nn_probe_measures_a_card_or_raises():

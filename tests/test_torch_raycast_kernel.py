@@ -29,7 +29,6 @@ from elasticreconstruction_tpu_torch.core import se3
 from elasticreconstruction_tpu_torch.kernels import raycast as rc
 from elasticreconstruction_tpu_torch.kernels import tsdf
 from elasticreconstruction_tpu_torch.kernels.cuda import build
-from elasticreconstruction_tpu_torch.kernels.cuda import raycast as rc_cuda
 from elasticreconstruction_tpu_torch.odometry.fragments import FragmentConfig, _volume_origin
 from elasticreconstruction_tpu_torch.synthetic import render, scenes
 
@@ -77,10 +76,10 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 def _check(vol, pose, intr, steps: int, min_valid: float, max_valid: float = 1.0) -> None:
     kw = dict(depth_min=0.1, depth_max=6.0, num_steps=steps)
     want = rc.raycast_plain(vol, pose, intr, **kw)
-    before = rc_cuda.launches
+    before = build.launches["raycast"]
     got = rc.raycast(vol, pose, intr, **kw)
     torch.cuda.synchronize()
-    assert rc_cuda.launches == before + 1
+    assert build.launches["raycast"] == before + 1
     assert got.valid.shape == (intr.height, intr.width) and got.vertices.shape == (intr.height, intr.width, 3)
     assert torch.equal(got.valid, want.valid), f"{int((got.valid != want.valid).sum())} pixels differ in valid"
     for name in ("vertices", "normals"):
@@ -150,13 +149,13 @@ def test_cpu_runs_the_plain_version_and_builds_nothing(monkeypatch):
     torch.set_num_threads(1)
     try:
         vol, poses = _fused(cfg, SMALL_INTR, 2, torch.device("cpu"))
-        before = rc_cuda.launches
+        before = build.launches["raycast"]
         for pose in (poses[1], _moved(poses[1])):
             got = rc.raycast(vol, pose, SMALL_INTR, num_steps=96)
             want = rc.raycast_plain(vol, pose, SMALL_INTR, num_steps=96)
             assert got.valid.any()
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
-        assert rc_cuda.launches == before
+        assert build.launches["raycast"] == before
     finally:
         torch.set_num_threads(threads)
