@@ -32,7 +32,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    fifth tracked from a moved seed, to the plain step from the same pose
    within the tolerances of ``tests/test_torch_gn_kernel.py``; one
    ``track_frame`` must launch it once a step. Its ms a step and a frame,
-   the plain levels' ms and its bytes bound are printed.
+   the plain levels' ms and its bytes bound are printed. The TSDF fuse kernel
+   (``check_tsdf_fuse``) must equal ``fuse_plain`` bit for bit on a copy of
+   that volume, the fourth frame fused again at its pose and at a moved one,
+   in place and in one launch; its ms, the plain version's and its bytes bound
+   (every weight, the observed voxels' tsdf) are printed.
 4. Registration path at full width: 6 fragments of 20 000 points (the registration
    benchmark's scene), ``prep_fragments_batch`` and ``register_prepped_batch``
    with ``RegistrationConfig()`` defaults over all 15 pairs x4 in 4 batches of
@@ -72,7 +76,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (mean |SDF| under 3 cm), both odometry edges within 2 cm / 0.02 rad at the
    fragment's centroid, ``nearest_batch`` launched by ``register``, and the
    raycast kernel launched once and the Gauss-Newton step kernel once a step
-   (19 with the full preset) for every tracked frame. Printed:
+   (19 with the full preset) for every tracked frame, and the fuse kernel
+   once for every fused frame (each fragment's first frame too). Printed:
    render and verb seconds, frames/s, per-frame ms of fuse, raycast, the
    Gauss-Newton levels of ``track_frame`` and surface extraction (device time
    by ``cuda_ms``, wall time, profiled device-busy time), host synchronisations
@@ -824,6 +829,74 @@ def check_gn_step(dev) -> dict:
     return rec
 
 
+def check_tsdf_fuse(dev) -> dict:
+    """The TSDF fuse kernel against ``fuse_plain`` on the benchmark
+    configuration's volume: the fourth orbit frame fused again at its pose
+    and at a pose moved off it, into a clone of the 512^3 volume fused from
+    the first four; tsdf and weight bit for bit, in place, one launch a call,
+    and two clones fused alike give the same bits. Times of the kernel and
+    the plain version, and the bytes bound of that frame: every weight read,
+    tsdf read and written for each observed voxel, a weight written where
+    its bits change, and the depth map, at 3.35 TB/s."""
+    from elasticreconstruction_tpu_torch.core import se3
+    from elasticreconstruction_tpu_torch.core.camera import PRIMESENSE
+    from elasticreconstruction_tpu_torch.kernels import tsdf
+    from elasticreconstruction_tpu_torch.kernels.cuda import build
+
+    vol, poses, depths = raycast_volume(dev)
+    depth = depths[3]
+    moved = se3.exp(torch.tensor([0.02, -0.01, 0.015, 0.01, -0.02, 0.005], device=dev)) @ poses[3]
+    kw = dict(max_weight=64.0, depth_min=0.1, depth_max=6.0)
+
+    def clone():
+        return vol._replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone())
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    by_case = {}
+    for name, pose in {"fused_pose": poses[3], "moved_pose": moved}.items():
+        want = tsdf.fuse_plain(vol, depth, pose, PRIMESENSE, **kw)
+        got = []
+        for _ in range(2):
+            mine = clone()
+            before = build.launches["tsdf_fuse"]
+            out = tsdf.fuse(mine, depth, pose, PRIMESENSE, **kw)
+            if build.launches["tsdf_fuse"] != before + 1 or out.tsdf is not mine.tsdf \
+                    or out.weight is not mine.weight:
+                fail(f"tsdf_fuse {name}: not one launch in place")
+            got.append(out)
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(getattr(got[0], k)), bits(getattr(got[1], k))) for k in ("tsdf", "weight")):
+            fail(f"tsdf_fuse {name}: two calls on the same inputs differ")
+        differ = {k: int((bits(getattr(got[0], k)) != bits(getattr(want, k))).sum()) for k in ("tsdf", "weight")}
+        observed = int((want.weight != torch.clamp_max(vol.weight, kw["max_weight"])).sum())
+        weight_written = int((bits(want.weight) != bits(vol.weight)).sum())
+        by_case[name] = {"voxels_differing": differ, "observed_voxels": observed,
+                         "weights_written": weight_written, "observed_share": observed / vol.tsdf.numel(),
+                         "max_abs_err": max((getattr(got[0], k) - getattr(want, k)).abs().max().item()
+                                            for k in ("tsdf", "weight"))}
+        if any(differ.values()):
+            fail(f"tsdf_fuse {name}: voxels differ in their bits from the plain version: {differ}")
+        del want, got, out, mine
+    pose = poses[3]
+    work = clone()
+    ms = cuda_ms(lambda: tsdf.fuse(work, depth, pose, PRIMESENSE, **kw))
+    one_call = call_ms(lambda: tsdf.fuse(work, depth, pose, PRIMESENSE, **kw))
+    del work
+    plain = cuda_ms(lambda: tsdf.fuse_plain(vol, depth, pose, PRIMESENSE, **kw), reps=3, warmup=1)
+    case = by_case["fused_pose"]
+    voxels, pixels = vol.tsdf.numel(), PRIMESENSE.width * PRIMESENSE.height
+    nbytes = 4 * voxels + 8 * case["observed_voxels"] + 4 * case["weights_written"] + 4 * pixels
+    bnd, by = bound_ms(0.0, nbytes)
+    rec = {"ms": ms, "call_ms": one_call, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
+           "bound_by": by, "bytes": nbytes, "whole_volume_bound_ms": bound_ms(0.0, 16 * voxels)[0],
+           "max_abs_err": max(c["max_abs_err"] for c in by_case.values()),
+           "shape": [*RAYCAST_VOLUME, PRIMESENSE.height, PRIMESENSE.width], "by_case": by_case}
+    print(json.dumps({"tsdf_fuse": rec}))
+    return rec
+
+
 def phase_kernel_parity() -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -846,13 +919,15 @@ def phase_kernel_parity() -> dict:
             "normal_eqs_batch": dict(icp_by_shape[0], by_shape=icp_by_shape),
             "raycast": check_raycast(dev),
             "gn_step": check_gn_step(dev),
+            "tsdf_fuse": check_tsdf_fuse(dev),
             **check_calib_kernels()}
 
 
 def launch_counts() -> dict:
     """Launches of every kernel since the last reset, by name (importing the
     wrappers declares them all)."""
-    from elasticreconstruction_tpu_torch.kernels.cuda import build, calib, gn_step, icp_step, nn, raycast  # noqa: F401
+    from elasticreconstruction_tpu_torch.kernels.cuda import (  # noqa: F401
+        build, calib, gn_step, icp_step, nn, raycast, tsdf_fuse)
 
     return dict(build.launches)
 
@@ -1239,8 +1314,11 @@ def frame_op_times(vol, depth, pose, intr, cfg) -> dict:
     for _ in range(ocfg.levels - 1):
         depths.append(kinfu.pyramid_down(depths[-1]))
         intrs.append(intrs[-1].scaled(0.5))
+    # The fuse updates a volume on the card in place: it is timed on a copy,
+    # so the ops after it see the one-frame volume.
+    scratch = vol._replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone())
     ops = {
-        "fuse": lambda: tsdf.fuse(vol, depth, pose, intr, max_weight=cfg.max_weight,
+        "fuse": lambda: tsdf.fuse(scratch, depth, pose, intr, max_weight=cfg.max_weight,
                                   depth_min=cfg.depth_min, depth_max=cfg.depth_max),
         "raycast": lambda: raycast.raycast(vol, pose, intr, depth_min=ocfg.depth_min,
                                            depth_max=ocfg.depth_max, num_steps=ocfg.raycast_steps),
@@ -1264,9 +1342,11 @@ def syncs_per_frame(vol, depth, pose, intr, cfg) -> int:
     from elasticreconstruction_tpu_torch.kernels import tsdf
     from elasticreconstruction_tpu_torch.odometry import kinfu
 
+    scratch = vol._replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone())  # fused in place on the card
+
     def frame():
         tr = kinfu.track_frame(vol, depth, pose, intr, cfg.odometry)
-        tsdf.fuse(vol, depth, tr.pose, intr, max_weight=cfg.max_weight, depth_min=cfg.depth_min,
+        tsdf.fuse(scratch, depth, tr.pose, intr, max_weight=cfg.max_weight, depth_min=cfg.depth_min,
                   depth_max=cfg.depth_max)
 
     syncs, by_line = count_host_syncs(frame)
@@ -1369,7 +1449,10 @@ def phase_fragments(tmp: str, seed: int = 0) -> dict:
     rec = fragments_path(dev, tmp, PRIMESENSE, FRAG_FRAMES, seed=seed)
     rec["launches"] = launch_counts()
     print(json.dumps({"fragments_path_launches_by_shape": launches_by_shape()}))
-    require_launched("fragments", rec["launches"], ["nearest_batch", "raycast", "gn_step"])
+    require_launched("fragments", rec["launches"], ["nearest_batch", "raycast", "gn_step", "tsdf_fuse"])
+    fused = rec["tracked_frames"] + rec["fragments"]
+    if rec["launches"]["tsdf_fuse"] != fused:
+        fail(f"fragments path: {rec['launches']['tsdf_fuse']} tsdf_fuse launches for {fused} fused frames")
     if rec["launches"]["raycast"] != rec["tracked_frames"]:
         fail(f"fragments path: {rec['launches']['raycast']} raycast launches for {rec['tracked_frames']} "
              "tracked frames")
@@ -2628,6 +2711,10 @@ KERNELS = {
     "gn_step": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/gn_step.cu",
         "replaces": "none: elasticreconstruction_tpu/odometry/kinfu.py::_gn_level is plain jnp",
+    },
+    "tsdf_fuse": {
+        "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/tsdf_fuse.cu",
+        "replaces": "none: elasticreconstruction_tpu/kernels/tsdf.py::fuse is plain jnp",
     },
     "fma_chain": {
         "source": "elasticreconstruction_tpu_torch/kernels/cuda/csrc/calib.cu",

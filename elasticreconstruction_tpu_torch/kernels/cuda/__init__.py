@@ -6,6 +6,7 @@
   (replace the calibration kernels of ``kernels_bench.py::calibrate``)
 - :mod:`.raycast`   ``raycast_cuda`` (replaces the plain ``kernels/raycast.py::raycast_plain``)
 - :mod:`.gn_step`   ``gn_level_cuda`` (replaces the plain ``odometry/kinfu.py::_gn_level_plain``)
+- :mod:`.tsdf_fuse` ``fuse_cuda`` (replaces the plain ``kernels/tsdf.py::fuse_plain``)
 
 The seam is :mod:`.build`: each launch function is one ``build.Kernel``,
 which builds, binds, launches and counts it (``build.launches``).
@@ -13,7 +14,8 @@ The route rule is ``build.on_card(tensor, op)``: CPU tensors run the plain
 version, CUDA tensors the kernel, others raise. A kernel standing for a Pallas
 kernel keeps its plain twin beside it and routes there (nn, icp_step, calib);
 one replacing plain jnp code routes at that code's op
-(``kernels/raycast.py::raycast``, ``odometry/kinfu.py::_gn_level``).
+(``kernels/raycast.py::raycast``, ``odometry/kinfu.py::_gn_level``,
+``kernels/tsdf.py::fuse``).
 
 Adding a kernel: write ``csrc/<source>.cu``; add its nvcc flags to
 ``build.SOURCE_FLAGS``; declare its launch function with ``build.Kernel``;

@@ -8,8 +8,8 @@ rebuilt and a built one is reused. Nothing is built at import time: the CPU
 test suite imports every module on a machine with no ``nvcc``.
 
 Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, plus the flags
-:data:`SOURCE_FLAGS` names for each. ``nn``, ``icp_step``, ``raycast`` and
-``gn_step`` take ``-fmad=false``: nvcc contracts no multiply and add of theirs on its own,
+:data:`SOURCE_FLAGS` names for each. ``nn``, ``icp_step``, ``raycast``,
+``gn_step`` and ``tsdf_fuse`` take ``-fmad=false``: nvcc contracts no multiply and add of theirs on its own,
 so every operation rounds as the plain PyTorch versions say it does; the three
 fused multiply-adds of the distance key are asked for by name (``__fmaf_rn``,
 see ``csrc/nn.cuh``), and the plain version mirrors them. ``calib`` takes ``-fmad=true``: its FMA chain exists to execute fused
@@ -46,6 +46,7 @@ SOURCE_FLAGS = {
     "icp_step": ("-fmad=false",),
     "raycast": ("-fmad=false",),
     "gn_step": ("-fmad=false",),
+    "tsdf_fuse": ("-fmad=false",),
     "calib": ("-fmad=true",),
 }
 SOURCES = tuple(SOURCE_FLAGS)

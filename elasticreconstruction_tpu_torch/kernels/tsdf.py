@@ -4,7 +4,11 @@ Counterpart of ``elasticreconstruction_tpu/kernels/tsdf.py``. The volume is a
 dense ``(X, Y, Z)`` pair of tsdf/weight tensors; fusion is one elementwise pass
 over all voxels (project the voxel center into the depth map, gather,
 truncate, weighted-average update). The reference's TPU path is plain jnp (no
-Pallas kernel), and so is this: plain PyTorch ops.
+Pallas kernel), and so is this module's: plain PyTorch ops. :func:`fuse` runs
+its plain version :func:`fuse_plain` for CPU tensors and the hand-written
+CUDA kernel (``kernels/cuda/tsdf_fuse.py``, ``csrc/tsdf_fuse.cu``) for CUDA
+tensors, which updates the volume in place; the two agree bit for bit on the
+card.
 
 Convention: ``tsdf`` stores signed distance normalized by the truncation
 band, in [-1, 1]; +1 = free space in front of the surface, -1 = behind.
@@ -17,7 +21,7 @@ constants and XLA turns every division by them into a multiply by the float32
 reciprocal; the port multiplies the same way (``core/types.py``,
 ``f32_reciprocal``), and forms voxel centers ``o + i * h`` as one fused
 multiply-add, as XLA does on the CPU (``core/types.py``, ``fma``). Voxel centers are never materialised at full size:
-:func:`fuse` forms each camera coordinate of every voxel from three per-axis
+:func:`fuse_plain` forms each camera coordinate of every voxel from three per-axis
 vectors, one broadcast add each.
 """
 
@@ -30,6 +34,8 @@ import torch
 
 from ..core import camera as cam
 from ..core.types import PointCloud, f32_reciprocal, fma, resolve_device
+from .cuda import build
+from .cuda import tsdf_fuse as _cuda
 
 
 class TSDFVolume(NamedTuple):
@@ -128,7 +134,34 @@ def fuse(
     x_offset: int = 0,
 ) -> TSDFVolume:
     """Fuse one depth map (``pose`` = camera-to-world) into the volume
-    (an x-slab from plane ``x_offset`` on, see :func:`axis_centers`)."""
+    (an x-slab from plane ``x_offset`` on, see :func:`axis_centers`).
+
+    On the card the update is in place: the kernel writes ``vol.tsdf`` and
+    ``vol.weight`` and the volume returned holds the same tensors, so the
+    volume passed in is not kept (every caller reassigns ``vol = fuse(vol,
+    ...)``). On the CPU :func:`fuse_plain` returns new tensors; a caller
+    must not read the volume it passed in there either, which
+    ``tests/test_torch_tsdf_fuse_kernel.py`` holds every caller to by
+    running it on the CPU with a ``fuse`` that updates in place.
+    """
+    kw = dict(max_weight=max_weight, depth_min=depth_min, depth_max=depth_max, x_offset=x_offset)
+    if not build.on_card(vol.tsdf, "tsdf_fuse"):
+        return fuse_plain(vol, depth, pose, intr, **kw)
+    return _cuda.fuse_cuda(vol, depth, pose, intr, **kw)
+
+
+def fuse_plain(
+    vol: TSDFVolume,
+    depth: torch.Tensor,
+    pose: torch.Tensor,
+    intr: cam.Intrinsics,
+    *,
+    max_weight: float = 64.0,
+    depth_min: float = 0.1,
+    depth_max: float = 6.0,
+    x_offset: int = 0,
+) -> TSDFVolume:
+    """:func:`fuse` in plain PyTorch ops, returning new tensors."""
     R = pose[:3, :3]
     # Camera coordinate j of voxel (i, k, l): sum_a (c_a - t_a) R[a, j], the
     # reference's (p_world - t) @ R, built from three per-axis vectors.

@@ -403,7 +403,8 @@ def bench_kernels(peaks: dict, want=None, device="cuda") -> list[dict]:
                     "time_ms": round(dt, 4),
                     "gvoxels_per_s": round(nvox / (dt * 1e-3) / 1e9, 2),
                     "model": model,
-                    "model_note": "plain torch ops (the reference's fuse is plain jnp too); op counts are estimates",
+                    "model_note": ("fuse: the hand-written kernel csrc/tsdf_fuse.cu, in place; fuse_scatter: plain "
+                                   "torch ops (the reference's fuse is plain jnp); op counts are estimates"),
                 }, peaks))
                 del vol
 

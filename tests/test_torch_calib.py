@@ -204,8 +204,8 @@ def test_bench_kernels_refuses_unported_sections():
 
 
 def test_build_flags_per_source():
-    assert set(build.SOURCES) == {"nn", "icp_step", "raycast", "gn_step", "calib"}
-    for name in ("nn", "icp_step", "raycast", "gn_step"):
+    assert set(build.SOURCES) == {"nn", "icp_step", "raycast", "gn_step", "tsdf_fuse", "calib"}
+    for name in ("nn", "icp_step", "raycast", "gn_step", "tsdf_fuse"):
         flags = build.nvcc_flags(name)
         assert "-fmad=false" in flags and "-fmad=true" not in flags
     flags = build.nvcc_flags("calib")

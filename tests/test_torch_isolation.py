@@ -238,6 +238,8 @@ def test_tool_entry_points_default_to_the_card(tmp_path):
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():
+    from elasticreconstruction_tpu_torch.core import camera as cam
+    from elasticreconstruction_tpu_torch.kernels import tsdf
     from elasticreconstruction_tpu_torch.kernels.cuda import icp_step, nn
 
     q = torch.zeros((1, 4, 3), device="meta")
@@ -246,6 +248,10 @@ def test_kernel_wrappers_refuse_unsupported_devices():
         nn.nearest_batch(q, q, m)
     with pytest.raises(ValueError, match="unsupported device"):
         icp_step.normal_eqs_batch(q, m.float(), q, q, m, max_dist=0.1)
+    vol = tsdf.make_volume((2, 3, 4), 0.1, (0.0, 0.0, 0.0), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsdf.fuse(vol, torch.zeros((3, 4), device="meta"), torch.eye(4, device="meta"),
+                  cam.Intrinsics(fx=4.0, fy=4.0, cx=1.5, cy=1.0, width=4, height=3))
 
 
 def test_chip_smoke_fails_without_a_card():
